@@ -1,0 +1,98 @@
+#!/usr/bin/env python3
+"""Accuracy probes behind PERF.md's reference notes (CPU only).
+
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_reference_check.py
+
+1. scipy's reference drivers at n = 4096: for the uniform and clustered
+   families (seed 0), the error of ``eigh_tridiagonal``'s default driver,
+   of its ``stebz`` driver and of the port (``device="cpu"``) at the
+   eigenvalue where the two drivers disagree most, against a Sturm-count
+   bisection in extended precision (numpy longdouble).
+2. The secular crawl on glued Wilkinson (ROADMAP Queue 3): the JAX
+   package's and the port's max error against ``stebz`` at n = 128 and
+   257 (seed 0), default knobs, and the JAX package with niter = 40.
+
+Errors are printed in units of eps * max(1, ||T||_inf).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import scipy.linalg as sla
+
+EPS = float(np.finfo(np.float64).eps)
+
+
+def _unit(d, e):
+    row = np.abs(d).copy()
+    row[:-1] += np.abs(e)
+    row[1:] += np.abs(e)
+    return EPS * max(1.0, float(row.max()))
+
+
+def _count_below(d, e2, x):
+    """Number of eigenvalues below x (Sturm sequence in longdouble)."""
+    q = d[0] - x
+    c = int(q < 0)
+    tiny = np.longdouble(1e-300)
+    for i in range(1, len(d)):
+        q = (d[i] - x) - e2[i - 1] / (q if q != 0 else tiny)
+        c += int(q < 0)
+    return c
+
+
+def _exact(d, e, k, lo, hi):
+    """Eigenvalue k by longdouble bisection inside [lo, hi]."""
+    dl = d.astype(np.longdouble)
+    e2 = e.astype(np.longdouble) ** 2
+    lo, hi = np.longdouble(lo), np.longdouble(hi)
+    for _ in range(90):
+        mid = (lo + hi) / 2
+        if _count_below(dl, e2, mid) > k:
+            hi = mid
+        else:
+            lo = mid
+    return (lo + hi) / 2
+
+
+def drivers():
+    from repro_torch.core import eigvalsh_tridiagonal, make_family
+    for fam in ("uniform", "clustered"):
+        d, e = make_family(fam, 4096, seed=0)
+        default = sla.eigh_tridiagonal(d, e, eigvals_only=True)
+        stebz = sla.eigh_tridiagonal(d, e, eigvals_only=True,
+                                     lapack_driver="stebz")
+        port = eigvalsh_tridiagonal(d, e, device="cpu").numpy()
+        u = _unit(d, e)
+        k = int(np.argmax(np.abs(default - stebz)))
+        vals = (default[k], stebz[k], port[k])
+        ex = _exact(d, e, k, min(vals) - 1e-12, max(vals) + 1e-12)
+        print(f"{fam} n=4096 seed 0, eigenvalue {k}: error of the default "
+              f"driver {float((default[k] - ex) / np.longdouble(u)):.3f}, "
+              f"stebz {float((stebz[k] - ex) / np.longdouble(u)):.3f}, "
+              f"port {float((port[k] - ex) / np.longdouble(u)):.3f}; "
+              f"max |port - stebz| {np.abs(port - stebz).max() / u:.2f}")
+
+
+def crawl():
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    from repro.core import eigvalsh_tridiagonal as jax_eig
+    from repro_torch.core import eigvalsh_tridiagonal, make_family
+    for n in (128, 257):
+        d, e = make_family("glued_wilkinson", n, seed=0)
+        ref = sla.eigh_tridiagonal(d, e, eigvals_only=True,
+                                   lapack_driver="stebz")
+        u = _unit(d, e)
+        errs = {
+            "jax": np.asarray(jax_eig(d, e)),
+            "jax niter=40": np.asarray(jax_eig(d, e, niter=40)),
+            "port": eigvalsh_tridiagonal(d, e, device="cpu").numpy()}
+        print(f"glued_wilkinson n={n} seed 0, max error vs stebz: "
+              + ", ".join(f"{k} {np.abs(v - ref).max() / u:.3g}"
+                          for k, v in errs.items()))
+
+
+if __name__ == "__main__":
+    drivers()
+    crawl()

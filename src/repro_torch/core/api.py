@@ -1,0 +1,43 @@
+"""Public eigensolver API of the port.
+
+    from repro_torch.core import eigvalsh_tridiagonal
+    lam = eigvalsh_tridiagonal(d, e)                 # on the CUDA card
+    lam = eigvalsh_tridiagonal(d, e, device="cpu")   # plain torch path
+    lam = eigvalsh_tridiagonal(D, E)                 # stacked (B, n) batch
+
+A thin wrapper over the request core (``repro_torch.core.request``):
+the arguments become a :class:`SolveRequest`, which is routed to its
+bucketed plan and executed.  Inputs are numpy arrays or torch tensors;
+results are torch tensors on the solve's device.
+"""
+
+from __future__ import annotations
+
+from repro_torch.core.br_dc import (eigvalsh_tridiagonal_batch,  # noqa: F401
+                                    eigvalsh_tridiagonal_br)     # noqa: F401
+from repro_torch.core.request import (METHODS, SolveRequest, SolveResult,
+                                      execute_request, route_request)
+
+__all__ = ["METHODS", "SolveRequest", "SolveResult", "eigvalsh_tridiagonal",
+           "eigvalsh_tridiagonal_batch", "eigvalsh_tridiagonal_br",
+           "execute_request", "route_request"]
+
+
+def eigvalsh_tridiagonal(d, e, method: str = "br", device=None, **knobs):
+    """All eigenvalues (ascending) of the symmetric tridiagonal (d, e).
+
+    1-D inputs solve one problem and return (n,); stacked (B, n) /
+    (B, n-1) inputs solve the batch natively and return (B, n).  Runs on
+    the CUDA card unless ``device="cpu"``; with no card and no
+    ``device="cpu"`` it raises.  ``knobs`` are those of
+    :func:`repro_torch.core.br_dc.eigvalsh_tridiagonal_br` (plus
+    ``dtype``).  Only ``method="br"`` is ported so far.
+    """
+    kind = "batch" if len(getattr(d, "shape", ())) == 2 else "full"
+    req = SolveRequest(d=d, e=e, kind=kind, method=method,
+                       return_boundary=bool(knobs.pop("return_boundary",
+                                                      False)),
+                       certify=bool(knobs.pop("certify", False)),
+                       deadline_ms=knobs.pop("deadline_ms", None),
+                       knobs=knobs, device=device)
+    return execute_request(req).eigenvalues

@@ -1,0 +1,123 @@
+"""Device-routed dispatchers for the eigensolver's kernels.
+
+Dispatch goes by the device of the tensors, never by a process-wide
+switch:
+
+  * a CPU tensor runs the plain torch version (``repro_torch.core.secular``);
+    ``dense=`` picks its dense (one (K, K) tile) or chunked form, as in the
+    JAX package's size-adaptive level dispatch;
+  * a CUDA tensor launches the hand-written kernel, or raises.  It never
+    falls back to the plain version, and ``dense``/``chunk`` select nothing
+    there: the kernels tile the pole axis themselves.
+
+``niter=None`` resolves to the dtype's secular budget (:func:`resolve_niter`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import secular as _sec
+from repro_torch.core.secular import DEFAULT_NITER, DEFAULT_NITER_F32
+from repro_torch.kernels.fused_update import secular_postpass_cuda
+from repro_torch.kernels.resident_merge import resident_merge_cuda
+from repro_torch.kernels.secular_roots import secular_solve_cuda
+
+
+def resolve_niter(niter: int | None, dtype) -> int:
+    """Per-dtype default secular iteration budget; an explicit niter wins."""
+    if niter is not None:
+        return int(niter)
+    return DEFAULT_NITER_F32 if dtype == torch.float32 else DEFAULT_NITER
+
+
+def _on_card(t) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got a tensor "
+                         f"on {t.device}")
+    return False
+
+
+def _int32(t):
+    return t.to(torch.int32).contiguous()
+
+
+def secular_solve_batched(d, z2, rho, kprime, *, niter: int | None = None,
+                          chunk: int = 256, dense: bool = False):
+    """Problem-batched secular solve: d, z2 (B, K); rho, kprime (B,).
+    Returns (origin (B, K) int32, tau (B, K))."""
+    niter = resolve_niter(niter, d.dtype)
+    if _on_card(d):
+        return secular_solve_cuda(d.contiguous(), z2.contiguous(),
+                                  rho.contiguous(), _int32(kprime),
+                                  niter=niter)
+    return _sec.secular_solve_batched(d, z2, rho, kprime, niter=niter,
+                                      chunk=chunk, dense=dense)
+
+
+def secular_postpass_batched(R, d, z, origin, tau, kprime, rho, *,
+                             use_zhat: bool = True, chunk: int = 256,
+                             dense: bool = False):
+    """Problem-batched fused post-pass: R (B, r, K); d, z, origin, tau
+    (B, K); kprime, rho (B,).  Returns (zhat (B, K), rows (B, r, K))."""
+    if _on_card(d):
+        return secular_postpass_cuda(
+            R.contiguous(), d.contiguous(), z.contiguous(), _int32(origin),
+            tau.contiguous(), _int32(kprime), rho.contiguous(),
+            use_zhat=use_zhat)
+    return _sec.secular_postpass_batched(R, d, z, origin, tau, kprime, rho,
+                                         use_zhat=use_zhat, chunk=chunk,
+                                         dense=dense)
+
+
+def secular_merge_resident_batched(d, z, R, rho, kprime, *,
+                                   niter: int | None = None,
+                                   use_zhat: bool = True):
+    """Problem-batched single-dispatch merge: d, z (B, K); R (B, r, K);
+    rho, kprime (B,).  One kernel launch per level on the card.  Returns
+    (origin (B, K) int32, tau (B, K), zhat (B, K), rows (B, r, K))."""
+    niter = resolve_niter(niter, d.dtype)
+    if _on_card(d):
+        return resident_merge_cuda(d.contiguous(), z.contiguous(),
+                                   R.contiguous(), rho.contiguous(),
+                                   _int32(kprime), niter=niter,
+                                   use_zhat=use_zhat)
+    return _sec.secular_merge_resident_batched(d, z, R, rho, kprime,
+                                               niter=niter,
+                                               use_zhat=use_zhat)
+
+
+def _as_scalar(x, like, dtype=None):
+    return torch.as_tensor(x, dtype=dtype or like.dtype,
+                           device=like.device).reshape(1)
+
+
+def secular_solve(d, z2, rho, kprime, *, niter: int | None = None,
+                  chunk: int = 256, dense: bool = False):
+    """Single-problem view: d, z2 (K,); rho, kprime scalars."""
+    o, t = secular_solve_batched(d[None], z2[None], _as_scalar(rho, d),
+                                 _as_scalar(kprime, d, torch.int32),
+                                 niter=niter, chunk=chunk, dense=dense)
+    return o[0], t[0]
+
+
+def secular_postpass(R, d, z, origin, tau, kprime, rho, *,
+                     use_zhat: bool = True, chunk: int = 256,
+                     dense: bool = False):
+    """Single-problem view: R (r, K); d, z, origin, tau (K,)."""
+    zhat, rows = secular_postpass_batched(
+        R[None], d[None], z[None], origin[None], tau[None],
+        _as_scalar(kprime, d, torch.int32), _as_scalar(rho, d),
+        use_zhat=use_zhat, chunk=chunk, dense=dense)
+    return zhat[0], rows[0]
+
+
+def secular_merge_resident(d, z, R, rho, kprime, *,
+                           niter: int | None = None, use_zhat: bool = True):
+    """Single-problem view: d, z (K,); R (r, K)."""
+    outs = secular_merge_resident_batched(
+        d[None], z[None], R[None], _as_scalar(rho, d),
+        _as_scalar(kprime, d, torch.int32), niter=niter, use_zhat=use_zhat)
+    return tuple(o[0] for o in outs)
