@@ -11,6 +11,11 @@
 2. The secular crawl on glued Wilkinson (ROADMAP Queue 3): the JAX
    package's and the port's max error against ``stebz`` at n = 128 and
    257 (seed 0), default knobs, and the JAX package with niter = 40.
+3. The mixed-precision refinement on glued Wilkinson (ROADMAP Queue 3):
+   the JAX package's ``precision="mixed"`` max error against ``stebz``
+   and its refine rounds at n = 256, 512 and 2048 (seed 1), and the
+   port's at n = 256 and 512 (the port re-solves lanes its last round
+   could not certify).
 
 Errors are printed in units of eps * max(1, ||T||_inf).
 """
@@ -93,6 +98,36 @@ def crawl():
                           for k, v in errs.items()))
 
 
+def mixed_rounds():
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    from repro.core import SOLVE_COUNTER as JAX_COUNTER
+    from repro.core import eigvalsh_tridiagonal as jax_eig
+    from repro_torch.core import (SOLVE_COUNTER, SolveRequest,
+                                  execute_request, make_family)
+    for n in (256, 512, 2048):
+        d, e = make_family("glued_wilkinson", n, seed=1)
+        ref = sla.eigh_tridiagonal(d, e, eigvals_only=True,
+                                   lapack_driver="stebz")
+        u = _unit(d, e)
+        with JAX_COUNTER.measure(refinement=True) as w:
+            lam = np.asarray(jax_eig(d, e, precision="mixed"))
+        line = (f"glued_wilkinson n={n} seed 1, precision='mixed': jax max "
+                f"error vs stebz {np.abs(lam - ref).max() / u:.4g} after "
+                f"{w.refinement_stats['max_rounds']} refine round(s)")
+        if n <= 512:
+            with SOLVE_COUNTER.measure(refinement=True) as w:
+                res = execute_request(SolveRequest(
+                    d=d, e=e, knobs={"precision": "mixed"}, device="cpu"))
+            lam = res.eigenvalues.numpy()
+            line += (f"; port {np.abs(lam - ref).max() / u:.4g} after "
+                     f"{w.refinement_stats['max_rounds']} round(s), "
+                     f"escalations "
+                     f"{(res.diagnostics or {}).get('escalations', 'none')}")
+        print(line)
+
+
 if __name__ == "__main__":
     drivers()
     crawl()
+    mixed_rounds()

@@ -1,12 +1,19 @@
-"""PyTorch port of ``repro.core``: the boundary-row D&C eigensolver's main
-path (``eigvalsh_tridiagonal(d, e)``, method "br", full and batched).
+"""PyTorch port of ``repro.core``: the boundary-row D&C eigensolver
+(``eigvalsh_tridiagonal(d, e)``, method "br", full and batched, native or
+``precision="mixed"``, optionally ``certify=True``) and the Sturm-count
+path (``eigvalsh_tridiagonal_range``, ``kind="edges"``,
+``method="bisect"``, ``certify_spectrum``).
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; the merge levels' secular solve, post-pass and resident
-merge are the hand-written kernels of ``repro_torch.kernels`` there.
+merge and the Sturm counts are the hand-written kernels of
+``repro_torch.kernels`` there.
 """
 
 from repro_torch.core.api import eigvalsh_tridiagonal, METHODS
+from repro_torch.core.bisect import (SpectrumCertificate, certify_spectrum,
+                                     eigvalsh_tridiagonal_range,
+                                     refine_clusters, sturm_count)
 from repro_torch.core.br_dc import (
     BRBatchResult,
     BRResult,
@@ -20,12 +27,18 @@ from repro_torch.core.guard import (CertificationError, DeadlineExceeded,
                                     validate_problem)
 from repro_torch.core.plan import (
     EXECUTOR_TRACES,
+    RANGE_EXECUTOR_TRACES,
     PlanKey,
+    RangePlan,
+    RangePlanKey,
     SolvePlan,
     clear_plan_cache,
     make_plan,
+    make_range_plan,
     plan_cache_stats,
     plan_for_route,
+    range_plan_for_route,
+    resolve_range_route,
     resolve_solve_route,
     route_key_tuple,
 )
@@ -49,12 +62,16 @@ from repro_torch.core.tridiag import (
 __all__ = [
     "BRBatchResult", "BRResult", "CertificationError", "DeadlineExceeded",
     "EXECUTOR_TRACES", "FAMILIES", "InvalidInputError", "KINDS", "METHODS",
-    "PlanKey", "RoutedRequest", "SOLVE_COUNTER", "SolvePlan", "SolveRequest",
-    "SolveResult", "clear_plan_cache", "dense_from_tridiag", "equilibrate",
+    "PlanKey", "RANGE_EXECUTOR_TRACES", "RangePlan", "RangePlanKey",
+    "RoutedRequest", "SOLVE_COUNTER", "SolvePlan", "SolveRequest",
+    "SolveResult", "SpectrumCertificate", "certify_spectrum",
+    "clear_plan_cache", "dense_from_tridiag", "equilibrate",
     "eigvalsh_tridiagonal", "eigvalsh_tridiagonal_batch",
-    "eigvalsh_tridiagonal_br", "execute_request", "gershgorin_bounds",
-    "make_family", "make_family_batch", "make_plan", "plan_cache_stats",
-    "plan_for_route", "resolve_solve_route", "route_key_tuple",
-    "route_request", "secular_eigenvalues", "secular_solve",
+    "eigvalsh_tridiagonal_br", "eigvalsh_tridiagonal_range",
+    "execute_request", "gershgorin_bounds", "make_family",
+    "make_family_batch", "make_plan", "make_range_plan", "plan_cache_stats",
+    "plan_for_route", "range_plan_for_route", "refine_clusters",
+    "resolve_range_route", "resolve_solve_route", "route_key_tuple",
+    "route_request", "secular_eigenvalues", "secular_solve", "sturm_count",
     "validate_problem", "workspace_model",
 ]

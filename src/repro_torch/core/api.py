@@ -4,6 +4,10 @@
     lam = eigvalsh_tridiagonal(d, e)                 # on the CUDA card
     lam = eigvalsh_tridiagonal(d, e, device="cpu")   # plain torch path
     lam = eigvalsh_tridiagonal(D, E)                 # stacked (B, n) batch
+    lam = eigvalsh_tridiagonal(d, e, method="bisect")      # Sturm bisection
+    lam = eigvalsh_tridiagonal(d, e, precision="mixed")    # f32 tree + f64
+    lam = eigvalsh_tridiagonal(d, e, certify=True)         # Sturm-certified
+    top = eigvalsh_tridiagonal_range(d, e, il=n - 8, iu=n - 1)
 
 A thin wrapper over the request core (``repro_torch.core.request``):
 the arguments become a :class:`SolveRequest`, which is routed to its
@@ -13,6 +17,7 @@ results are torch tensors on the solve's device.
 
 from __future__ import annotations
 
+from repro_torch.core.bisect import eigvalsh_tridiagonal_range  # noqa: F401
 from repro_torch.core.br_dc import (eigvalsh_tridiagonal_batch,  # noqa: F401
                                     eigvalsh_tridiagonal_br)     # noqa: F401
 from repro_torch.core.request import (METHODS, SolveRequest, SolveResult,
@@ -20,7 +25,7 @@ from repro_torch.core.request import (METHODS, SolveRequest, SolveResult,
 
 __all__ = ["METHODS", "SolveRequest", "SolveResult", "eigvalsh_tridiagonal",
            "eigvalsh_tridiagonal_batch", "eigvalsh_tridiagonal_br",
-           "execute_request", "route_request"]
+           "eigvalsh_tridiagonal_range", "execute_request", "route_request"]
 
 
 def eigvalsh_tridiagonal(d, e, method: str = "br", device=None, **knobs):
@@ -29,9 +34,17 @@ def eigvalsh_tridiagonal(d, e, method: str = "br", device=None, **knobs):
     1-D inputs solve one problem and return (n,); stacked (B, n) /
     (B, n-1) inputs solve the batch natively and return (B, n).  Runs on
     the CUDA card unless ``device="cpu"``; with no card and no
-    ``device="cpu"`` it raises.  ``knobs`` are those of
+    ``device="cpu"`` it raises.
+
+    ``method="br"`` (boundary-row D&C) takes the knobs of
     :func:`repro_torch.core.br_dc.eigvalsh_tridiagonal_br` (plus
-    ``dtype``).  Only ``method="br"`` is ported so far.
+    ``dtype``), ``precision="mixed"`` among them; ``method="bisect"``
+    (Sturm bisection of every index) takes ``maxiter`` and ``polish``.
+    Every method accepts ``certify=True``: one extra batched Sturm-count
+    sweep verifies each eigenvalue against (d, e) and escalates misses or
+    non-finite outputs down the degradation ladder (mixed -> native D&C
+    -> per-lane bisection).  The baseline methods come with ROADMAP
+    Queue 1 item 8.
     """
     kind = "batch" if len(getattr(d, "shape", ())) == 2 else "full"
     req = SolveRequest(d=d, e=e, kind=kind, method=method,

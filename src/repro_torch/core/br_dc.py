@@ -217,17 +217,23 @@ def eigvalsh_tridiagonal_batch(d, e, *, leaf: int | None = None,
                                deflate_budget: int | None = None,
                                resident_threshold: int | None = None,
                                fused: bool = True,
-                               dtype=None, device=None) -> BRBatchResult:
+                               dtype=None, device=None,
+                               precision: str = "native",
+                               refine_tol: float | None = None
+                               ) -> BRBatchResult:
     """All eigenvalues of B independent symmetric tridiagonals at once.
 
     d: (B, n), e: (B, n-1), numpy arrays or tensors.  One plan execution,
     B * O(n) state; runs on ``device`` (default: the CUDA card; pass
     ``device="cpu"`` for the plain torch path).  Knobs as in
-    ``repro.core.br_dc.eigvalsh_tridiagonal_batch``.  Returns
+    ``repro.core.br_dc.eigvalsh_tridiagonal_batch`` (``precision`` and
+    ``refine_tol`` as in :func:`eigvalsh_tridiagonal_br`).  Returns
     BRBatchResult with eigenvalues (B, n) ascending per problem.
     """
     from repro_torch.core import plan as _plan  # deferred: plan imports br_dc
     dev = _plan.resolve_device(device)
+    if precision == "mixed" and dtype is None:
+        dtype = torch.float64   # mixed certifies / returns in f64
     d, e = _as_batch(d, e, dtype, dev)
     B, n = d.shape
     if n == 1:
@@ -241,7 +247,8 @@ def eigvalsh_tridiagonal_batch(d, e, *, leaf: int | None = None,
                         stream_threshold=stream_threshold,
                         deflate_budget=deflate_budget,
                         resident_threshold=resident_threshold, fused=fused,
-                        dtype=d.dtype, device=dev)
+                        dtype=d.dtype, device=dev, precision=precision,
+                        refine_tol=refine_tol)
     return p.execute(d, e)
 
 
@@ -255,13 +262,28 @@ def eigvalsh_tridiagonal_br(d, e, *, leaf: int | None = None,
                             deflate_budget: int | None = None,
                             resident_threshold: int | None = None,
                             fused: bool = True,
-                            dtype=None, device=None) -> BRResult:
+                            dtype=None, device=None,
+                            precision: str = "native",
+                            refine_tol: float | None = None) -> BRResult:
     """All eigenvalues of the symmetric tridiagonal (d, e) via boundary-row
     D&C; the batch == 1 bucket of the plan core.  Single (possibly
     padded) leaf trees always return (blo, bhi), as in the JAX package.
+
+    ``precision="mixed"`` runs the whole tree in float32, then certifies
+    every eigenvalue with float64 Sturm counts against the original
+    (d, e) and polishes only the uncertified ones
+    (``bisect.refine_clusters``): float64 output within
+    ``refine_tol * eps_f64 * max(1, ||T||_inf)`` (default
+    ``bisect.DEFAULT_REFINE_TOL``).  Boundary rows under mixed are
+    float32-accurate, cast to float64 and permuted with the eigenvalues.
+    A problem with an eigenvalue the refinement cannot certify comes back
+    all NaN here; ``eigvalsh_tridiagonal`` re-solves such problems
+    natively.
     """
     from repro_torch.core import plan as _plan  # deferred: plan imports br_dc
     dev = _plan.resolve_device(device)
+    if precision == "mixed" and dtype is None:
+        dtype = torch.float64   # mixed certifies / returns in f64
     d, e = _as_batch(torch.as_tensor(d)[None], torch.as_tensor(e)[None],
                      dtype, dev)
     n = d.shape[1]
@@ -269,7 +291,7 @@ def eigvalsh_tridiagonal_br(d, e, *, leaf: int | None = None,
         one = torch.ones((1,), dtype=d.dtype, device=dev)
         SOLVE_COUNTER.increment()
         return BRResult(d[0], one, one, ())
-    leaf = _plan.resolve_leaf(leaf, n, d.dtype)
+    leaf = _plan.resolve_leaf(leaf, n, d.dtype, precision)
     _, L = _tree_shape(n, leaf)
     p = _plan.make_plan(n, 1, leaf=leaf, chunk=chunk, niter=niter,
                         use_zhat=use_zhat,
@@ -278,7 +300,8 @@ def eigvalsh_tridiagonal_br(d, e, *, leaf: int | None = None,
                         stream_threshold=stream_threshold,
                         deflate_budget=deflate_budget,
                         resident_threshold=resident_threshold, fused=fused,
-                        dtype=d.dtype, device=dev)
+                        dtype=d.dtype, device=dev, precision=precision,
+                        refine_tol=refine_tol)
     res = p.execute(d, e)
     blo = None if res.blo is None else res.blo[0]
     bhi = None if res.bhi is None else res.bhi[0]

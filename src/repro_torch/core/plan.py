@@ -1,5 +1,5 @@
 """Batch-first solve plans: static tree shape + bucketed plan cache (port of
-``repro.core.plan``, full-spectrum plans only).
+``repro.core.plan``: full-spectrum and range plans).
 
 A plan captures everything static about a solve up front: the padded
 problem size ``N = leaf * 2^L`` and depth ``L``, the per-level coupling
@@ -10,10 +10,12 @@ by :class:`PlanKey`, which carries the same knob fields as the JAX
 package's key plus the device.
 
 PyTorch runs eagerly, so there is no compiled executable behind a plan:
-``EXECUTOR_TRACES`` counts *executor builds*, i.e. plan-cache misses --
-the analogue of the JAX package's trace counter (a second same-bucket
-request builds nothing).  Range plans, sharding, the tuning cache and
-``prewarm`` come in later slices.
+``EXECUTOR_TRACES`` counts *executor builds*, i.e. first sightings of a
+tree's identity -- the analogue of the JAX package's trace counter (a
+second same-bucket request builds nothing, and ``certify`` is not part of
+the tree's identity).  ``RANGE_EXECUTOR_TRACES`` counts range-plan builds
+the same way.  Sharding, the tuning cache and ``prewarm`` come in later
+slices.
 """
 
 from __future__ import annotations
@@ -22,21 +24,27 @@ import dataclasses
 import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from repro_torch.core import bisect as _bis
 from repro_torch.core import br_dc as _br
 from repro_torch.core import guard as _guard
 from repro_torch.core import merge as _merge
 from repro_torch.core import secular as _sec
 from repro_torch.core.instrument import SolveCounter
 from repro_torch.core.tune import resolve_device  # noqa: F401 (re-export)
+from repro_torch.runtime import faults as _faults
 
 # Built-in leaf block size (the tuning cache that may override it comes in
 # a later slice).
 LEAF_DEFAULT = 32
 
-# Incremented once per executor build (plan-cache miss).
+# Incremented once per executor build (a tree identity seen first).
 EXECUTOR_TRACES = SolveCounter("executor_traces")
+
+# Same contract for the partial-spectrum (range) plans.
+RANGE_EXECUTOR_TRACES = SolveCounter("range_executor_traces")
 
 
 class PlanKey(NamedTuple):
@@ -55,6 +63,19 @@ class PlanKey(NamedTuple):
     resident_threshold: int
     fused: bool
     device: str
+    # Mixed-precision pipeline: "mixed" runs the whole tree in float32
+    # and then Sturm-certifies / polishes the eigenvalues against the
+    # original float64 (d, e) to refine_tol * eps_f64 * ||T||; `dtype`
+    # stays the OUTPUT dtype (float64).  Certified native routes carry
+    # their certification tolerance in refine_tol; uncertified native
+    # routes normalize it to 0.0.
+    precision: str = "native"
+    refine_tol: float = 0.0
+    # Certified solves: the request finalizer runs one extra batched
+    # Sturm sweep over the outputs.  Not part of the tree's identity:
+    # plan_for_route strips it, so certified and uncertified traffic of
+    # equal knobs share one plan.
+    certify: bool = False
 
 
 def route_key_tuple(key) -> tuple:
@@ -81,7 +102,6 @@ def resolve_leaf(leaf, n: int, dtype, precision: str = "native") -> int:
 def _dtype_name(dtype) -> str:
     if isinstance(dtype, torch.dtype):
         return str(dtype).replace("torch.", "")
-    import numpy as np
     return np.dtype(dtype).name
 
 
@@ -117,10 +137,34 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
     """
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
-    if precision != "native" or refine_tol is not None:
-        raise _not_ported("precision='mixed' / refine_tol", "item 7")
-    if certify:
-        raise _not_ported("certify=True", "item 7")
+    if precision not in ("native", "mixed"):
+        raise ValueError(
+            f"precision must be 'native' or 'mixed', got {precision!r}")
+    if precision == "mixed":
+        if dtype is not None and _dtype_name(dtype) != "float64":
+            raise ValueError(
+                f"precision='mixed' returns float64 eigenvalues; dtype "
+                f"must be float64 or None, got {_dtype_name(dtype)} (for a "
+                f"pure-f32 solve use dtype=float32 with precision='native')")
+        dtype = torch.float64
+        refine_tol = float(refine_tol if refine_tol is not None
+                           else _bis.DEFAULT_REFINE_TOL)
+        if refine_tol <= 0.0:
+            raise ValueError(
+                f"refine_tol must be positive (eps_f64 * ||T|| units), "
+                f"got {refine_tol}")
+    else:
+        if refine_tol is not None and not certify:
+            raise ValueError(
+                "refine_tol only applies to precision='mixed' or "
+                "certify=True routes")
+        refine_tol = (float(refine_tol if refine_tol is not None
+                            else _bis.DEFAULT_REFINE_TOL) if certify
+                      else 0.0)
+        if certify and refine_tol <= 0.0:
+            raise ValueError(
+                f"refine_tol must be positive (eps * ||T|| units), "
+                f"got {refine_tol}")
     if mesh not in ("auto", None, 1) or compress_halo:
         raise _not_ported("sharded solves (mesh, compress_halo)", "item 13")
     if not fused:
@@ -130,7 +174,8 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
     dev = resolve_device(device)
     dtype_name = _dtype_name(torch.float64 if dtype is None else dtype)
     if niter is None:
-        niter = (_sec.DEFAULT_NITER_F32 if dtype_name == "float32"
+        niter = (_sec.DEFAULT_NITER_F32
+                 if dtype_name == "float32" or precision == "mixed"
                  else _sec.DEFAULT_NITER)
     leaf = resolve_leaf(leaf, n, dtype_name)
     N, _ = _br._tree_shape(n, leaf)
@@ -147,7 +192,8 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
                    stream_threshold=int(stream_threshold),
                    deflate_budget=int(deflate_budget),
                    resident_threshold=int(resident_threshold), fused=fused,
-                   device=str(dev))
+                   device=str(dev), precision=precision,
+                   refine_tol=refine_tol, certify=bool(certify))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -229,14 +275,29 @@ class SolvePlan:
         else:
             track = None
 
+        if key.precision == "mixed":
+            # The whole tree runs in float32; the float64 (d_pad, e_pad)
+            # stay behind for the Sturm certification / polish below.
+            d_run, e_run = d_pad.to(torch.float32), e_pad.to(torch.float32)
+        else:
+            d_run, e_run = d_pad, e_pad
+
+        # Chaos-harness hook: a scheduled launch fault raises here, after
+        # input staging and before the tree runs.
+        _faults.inject("plan.launch")
+
         lam, rows, kprimes = _br._br_dc_padded_batch(
-            d_pad, e_pad, track, leaf=key.leaf, chunk=key.chunk,
+            d_run, e_run, track, leaf=key.leaf, chunk=key.chunk,
             niter=key.niter, use_zhat=key.use_zhat,
             return_boundary=key.return_boundary, tol_factor=key.tol_factor,
             stream_threshold=key.stream_threshold,
             deflate_budget=key.deflate_budget,
             resident_threshold=key.resident_threshold)
         _br.SOLVE_COUNTER.increment()
+        # Chaos-harness hook: NaN-poisons configured eigenvalue rows before
+        # the mixed stage (a poisoned mixed solve exercises recovery by
+        # refinement, a poisoned native solve the finalizer's ladder).
+        lam = _faults.poison_rows("plan.output", lam)
 
         if _br.SOLVE_COUNTER.deflation_enabled:
             # Deflation-ratio gauge (opt-in): kprime per level over the
@@ -248,9 +309,41 @@ class SolvePlan:
                     level, float(kp[:B, :nm_real].sum()),
                     B * nm_real * K_level)
 
-        lam = lam[:B, :n]   # sentinels sort above the Gershgorin bound
+        lam = lam[:B]
+        rows_b = rows[:B] if key.return_boundary else None
+        if key.precision == "mixed":
+            # Certify the f32 tree's eigenvalues with f64 Sturm counts
+            # against the ORIGINAL (d, e) and polish only the misses, on
+            # the full padded width (sentinel lanes are decoupled and
+            # certify vacuously through nvalid).  The polish can reorder
+            # ties: one stable sort restores ascending order and permutes
+            # the selected rows identically.
+            nvalid = (orig_n if orig_n is not None
+                      else torch.full((B,), n, dtype=torch.int32,
+                                      device=dev))
+            lam_ref, rinfo = _bis.refine_clusters(
+                d_pad[:B], e_pad[:B, : N - 1], lam.to(dtype), nvalid=nvalid,
+                tol_factor=key.refine_tol, sort=False, device=dev)
+            failed = rinfo["uncertified"].any(axis=1)
+            if failed.any():
+                # A problem with a lane the refine rounds could not certify
+                # has failed, like one with a non-finite lane: every lane
+                # of it comes back NaN, sentinels included (a NaN sorts
+                # above them and the [:n] cut below would drop it), and the
+                # request finalizer re-solves the problem natively.
+                lam_ref[torch.from_numpy(failed).to(dev)] = float("nan")
+            lam, order = torch.sort(lam_ref, dim=1, stable=True)
+            if rows_b is not None:
+                rows_b = torch.gather(
+                    rows_b.to(dtype), 2,
+                    order[:, None, :].expand(-1, rows_b.shape[1], -1))
+            if _br.SOLVE_COUNTER.refinement_enabled:
+                _br.SOLVE_COUNTER.record_refinement(
+                    rinfo["targets"], rinfo["polished"],
+                    rinfo["iterations"], rinfo["rounds"])
+
+        lam = lam[:, :n]   # sentinels sort above the Gershgorin bound
         if key.return_boundary:
-            rows_b = rows[:B]
             blo = rows_b[:, 0, :n]
             bhi = rows_b[:, 2 if track is not None else 1, :n]
         else:
@@ -259,9 +352,108 @@ class SolvePlan:
                                  tuple(k[:B] for k in kprimes))
 
 
+class RangePlanKey(NamedTuple):
+    """Bucketed cache key for partial-spectrum (sliced) solves.
+
+    ``k_bucket`` rounds the slice width up to the next power of two and
+    the target indices are an input of the launch, so every (il, iu)
+    window of one bucketed width shares one plan.  ``select`` is not a
+    key field: select-by-value requests resolve to an index window first.
+    """
+    n: int
+    k_bucket: int
+    batch_bucket: int
+    dtype: str
+    maxiter: int
+    polish: int
+    device: str
+
+
+@dataclasses.dataclass(frozen=True)
+class RangePlan:
+    """Static schedule for one (n, k bucket, batch bucket) sliced-solve
+    class; ``execute`` is the only entry point that launches work."""
+    key: RangePlanKey
+
+    @property
+    def k_bucket_size(self) -> int:
+        return self.key.k_bucket
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device(self.key.device)
+
+    @property
+    def state_bytes(self) -> int:
+        """Persistent-state byte model for one full-bucket launch:
+        B * (2n inputs + 4k bracket state (lo, hi, lam, count))."""
+        key = self.key
+        itemsize = torch.empty((), dtype=_torch_dtype(key.dtype)
+                               ).element_size()
+        return key.batch_bucket * (2 * key.n + 4 * key.k_bucket) * itemsize
+
+    def execute(self, d, e, il, k: int | None = None):
+        """Eigenvalues [il, il + k) of each problem in a (B, n) batch.
+
+        B may be anything <= the plan's batch bucket (short batches pad
+        with zero problems) and k anything <= the k bucket (short slices
+        clamp their tail targets to n-1: duplicate roots, sliced away).
+        ``il`` may be an int or a (B,) integer array: each problem then
+        slices its own [il[b], il[b] + k) window in the same launch (the
+        ``kind="edges"`` form).  Returns (B, k).
+        """
+        key = self.key
+        dev = self.device
+        d, e = _br._as_batch(d, e, _torch_dtype(key.dtype), dev)
+        B, n = d.shape
+        if n != key.n:
+            raise ValueError(f"n={n} but this plan was built for n={key.n}")
+        Bb = key.batch_bucket
+        if B > Bb:
+            raise ValueError(
+                f"batch {B} exceeds plan bucket {Bb}; make a bigger plan")
+        k = key.k_bucket if k is None else int(k)
+        if not (1 <= k <= key.k_bucket):
+            raise ValueError(
+                f"slice width {k} exceeds plan k bucket {key.k_bucket}")
+        il = np.asarray(il, np.int64)
+        if il.ndim == 0:
+            ilv = int(il)
+            if not (0 <= ilv and ilv + k <= n):
+                raise ValueError(
+                    f"slice [{ilv}, {ilv + k}) out of range for n={n}")
+            il = np.full((B,), ilv, np.int64)
+        else:
+            if il.shape != (B,):
+                raise ValueError(
+                    f"per-problem il must have shape ({B},), got "
+                    f"{il.shape}")
+            if il.min() < 0 or il.max() >= n:
+                raise ValueError(
+                    f"per-problem il must lie in [0, {n}); got "
+                    f"[{il.min()}, {il.max()}]")
+
+        if B < Bb:
+            d = torch.cat([d, torch.zeros((Bb - B, n), dtype=d.dtype,
+                                          device=dev)])
+            e = torch.cat([e, torch.zeros((Bb - B, max(n - 1, 0)),
+                                          dtype=d.dtype, device=dev)])
+        il_full = np.zeros((Bb,), np.int64)
+        il_full[:B] = il
+        targets = np.minimum(il_full[:, None]
+                             + np.arange(key.k_bucket)[None, :], n - 1)
+        targets = torch.from_numpy(targets.astype(np.int32)).to(dev)
+
+        lam = _bis._slice_targets(d, e, targets, maxiter=key.maxiter,
+                                  polish=key.polish)
+        _br.SOLVE_COUNTER.increment()
+        return lam[:B, :k]
+
+
 _PLAN_CACHE: dict[PlanKey, SolvePlan] = {}
+_RANGE_CACHE: dict[RangePlanKey, RangePlan] = {}
 _PLAN_LOCK = threading.Lock()
-_STATS = {"hits": 0, "misses": 0}
+_STATS = {"hits": 0, "misses": 0, "range_hits": 0, "range_misses": 0}
 
 
 def make_plan(n: int, batch: int = 1, *, leaf: int | None = None,
@@ -284,8 +476,13 @@ def make_plan(n: int, batch: int = 1, *, leaf: int | None = None,
 
 
 def plan_for_route(route: PlanKey, batch: int = 1) -> SolvePlan:
-    """Fix a route key's batch axis and build (or fetch) its SolvePlan."""
-    key = route._replace(batch_bucket=batch_bucket(batch))
+    """Fix a route key's batch axis and build (or fetch) its SolvePlan.
+    ``certify`` (and a native route's certification tolerance) is the
+    request finalizer's business, not the tree's: it is stripped here, so
+    certified traffic shares the uncertified plan."""
+    key = route._replace(
+        batch_bucket=batch_bucket(batch), certify=False,
+        refine_tol=route.refine_tol if route.precision == "mixed" else 0.0)
     N, leaf = key.padded_n, key.leaf
     L = (N // leaf).bit_length() - 1
     with _PLAN_LOCK:
@@ -307,24 +504,86 @@ def plan_for_route(route: PlanKey, batch: int = 1) -> SolvePlan:
         return plan
 
 
+def resolve_range_route(n: int, k: int, *, maxiter: int | None = None,
+                        polish: int | None = None, dtype=None,
+                        device=None) -> RangePlanKey:
+    """Resolve a sliced-solve request to its bucketed route key -- pure.
+    The batch axis stays unresolved (``batch_bucket == 0``); None knobs
+    resolve to the built-in defaults."""
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    if not (1 <= k <= n):
+        raise ValueError(f"k must be in [1, n]; got k={k}, n={n}")
+    dev = resolve_device(device)
+    return RangePlanKey(
+        n=n, k_bucket=min(batch_bucket(k), n), batch_bucket=0,
+        dtype=_dtype_name(torch.float64 if dtype is None else dtype),
+        maxiter=int(_bis.DEFAULT_MAX_BISECT if maxiter is None else maxiter),
+        polish=int(_bis.DEFAULT_POLISH if polish is None else polish),
+        device=str(dev))
+
+
+def make_range_plan(n: int, k: int, batch: int = 1, *,
+                    maxiter: int | None = None, polish: int | None = None,
+                    dtype=None, device=None) -> RangePlan:
+    """Build (or fetch) the RangePlan for an (n, k, batch) sliced request:
+    ``range_plan_for_route(resolve_range_route(...), batch)``."""
+    return range_plan_for_route(
+        resolve_range_route(n, k, maxiter=maxiter, polish=polish,
+                            dtype=dtype, device=device), batch)
+
+
+def range_plan_for_route(route: RangePlanKey,
+                         batch: int = 1) -> RangePlan:
+    """Fix a range route key's batch axis and build (or fetch) its plan."""
+    key = route._replace(batch_bucket=batch_bucket(batch))
+    with _PLAN_LOCK:
+        plan = _RANGE_CACHE.get(key)
+        if plan is not None:
+            _STATS["range_hits"] += 1
+            return plan
+        _STATS["range_misses"] += 1
+        plan = RangePlan(key=key)
+        _RANGE_CACHE[key] = plan
+        RANGE_EXECUTOR_TRACES.increment()
+        return plan
+
+
 def plan_cache_stats() -> dict:
     """Plan-cache observability: size, hits, misses, executor builds and
-    the summed persistent-state byte model of the cached plans."""
+    the summed persistent-state byte model of the cached plans, for the
+    full-spectrum and the range caches, plus the certify/refine executor
+    builds and the robustness counters."""
     with _PLAN_LOCK:
         return {"size": len(_PLAN_CACHE), "hits": _STATS["hits"],
                 "misses": _STATS["misses"],
                 "executor_traces": EXECUTOR_TRACES.count,
                 "state_bytes": sum(p.state_bytes
                                    for p in _PLAN_CACHE.values()),
+                "range_size": len(_RANGE_CACHE),
+                "range_hits": _STATS["range_hits"],
+                "range_misses": _STATS["range_misses"],
+                "range_executor_traces": RANGE_EXECUTOR_TRACES.count,
+                "range_state_bytes": sum(p.state_bytes
+                                         for p in _RANGE_CACHE.values()),
+                "refine_executor_traces": _bis.REFINE_EXECUTOR_TRACES.count,
                 **_guard.robustness_counters()}
 
 
 def clear_plan_cache() -> None:
-    """Drop cached plans and zero every cache statistic (and the
-    robustness counters), so a fresh measurement window starts at zero."""
+    """Drop cached plans and zero every cache statistic, so a fresh
+    measurement window starts at zero.  Also clears the robustness
+    layer's process-wide state -- the fault schedule and its hit
+    counters, the degradation gauge and counters -- so a chaos schedule
+    never leaks into the next solve."""
     with _PLAN_LOCK:
         _PLAN_CACHE.clear()
+        _RANGE_CACHE.clear()
         for k in _STATS:
             _STATS[k] = 0
         EXECUTOR_TRACES.reset()
+        RANGE_EXECUTOR_TRACES.reset()
+        _bis.reset_refine_builds()
+    _faults.reset_faults()
     _guard.reset_robustness_counters()
+    _br.SOLVE_COUNTER.clear_degradation()

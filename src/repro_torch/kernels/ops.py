@@ -3,7 +3,8 @@
 Dispatch goes by the device of the tensors, never by a process-wide
 switch:
 
-  * a CPU tensor runs the plain torch version (``repro_torch.core.secular``);
+  * a CPU tensor runs the plain torch version (``repro_torch.core.secular``
+    for the merge kernels, ``repro_torch.core.bisect`` for the Sturm counts);
     ``dense=`` picks its dense (one (K, K) tile) or chunked form, as in the
     JAX package's size-adaptive level dispatch;
   * a CUDA tensor launches the hand-written kernel, or raises.  It never
@@ -17,11 +18,14 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import bisect as _bis
 from repro_torch.core import secular as _sec
 from repro_torch.core.secular import DEFAULT_NITER, DEFAULT_NITER_F32
 from repro_torch.kernels.fused_update import secular_postpass_cuda
 from repro_torch.kernels.resident_merge import resident_merge_cuda
 from repro_torch.kernels.secular_roots import secular_solve_cuda
+from repro_torch.kernels.sturm_count import (sturm_count_cuda,
+                                             sturm_count_newton_cuda)
 
 
 def resolve_niter(niter: int | None, dtype) -> int:
@@ -87,6 +91,28 @@ def secular_merge_resident_batched(d, z, R, rho, kprime, *,
     return _sec.secular_merge_resident_batched(d, z, R, rho, kprime,
                                                niter=niter,
                                                use_zhat=use_zhat)
+
+
+def sturm_count_batched(d, e2, shifts, pivmin):
+    """Batched Sturm counts: d (B, n); e2 (B, n-1); shifts (B, S); pivmin
+    (B, 1) or (B,).  Returns (B, S) int32 counts of eigenvalues <= shift
+    (the bisection front end's and the certify sweep's workhorse)."""
+    if _on_card(d):
+        return sturm_count_cuda(d.contiguous(), e2.contiguous(),
+                                shifts.contiguous(),
+                                pivmin.reshape(-1).contiguous())
+    return _bis.sturm_count_plain(d, e2, shifts, pivmin.reshape(-1, 1))
+
+
+def count_and_newton_batched(d, e2, x, pivmin):
+    """Sturm counts plus the pivot recurrence's derivative sum at every
+    shift (shapes as :func:`sturm_count_batched`).  Returns (count (B, S)
+    int32, s (B, S)): the Newton polish's and the refine loop's sweep."""
+    if _on_card(d):
+        return sturm_count_newton_cuda(d.contiguous(), e2.contiguous(),
+                                       x.contiguous(),
+                                       pivmin.reshape(-1).contiguous())
+    return _bis._count_and_newton(d, e2, x, pivmin.reshape(-1, 1))
 
 
 def _as_scalar(x, like, dtype=None):

@@ -5,7 +5,8 @@ Deliberately naive: each oracle materializes the full (K, K) intermediate
 the kernels exist to avoid, so any tiling bug in a kernel shows up as a
 mismatch.  The root oracle is plain bisection in float64 numpy, whose
 only error is ~2^-niter of the initial bracket -- independent of the
-kernels' rational iteration.
+kernels' rational iteration.  The Sturm and certify oracles are scalar
+loops of the DSTEBZ count recurrence in float64 numpy.
 """
 
 from __future__ import annotations
@@ -145,3 +146,57 @@ def resident_merge_batch_ref(d, z, R, rho, kprime, *, use_zhat=True,
                                use_zhat=use_zhat, niter=niter)
             for b in range(d.shape[0])]
     return tuple(torch.stack([o[i] for o in outs]) for i in range(4))
+
+
+def sturm_count_ref(d, e2, shifts, pivmin):
+    """Literal per-(problem, shift) Python-loop Sturm count oracle.
+
+    The exact DSTEBZ negcount recurrence in scalar numpy float64 -- any
+    tiling bug in the batched kernel (lane mixing, pivot floor broadcast,
+    row-tile edges) shows up as an integer mismatch.  d: (B, n);
+    e2: (B, n-1); shifts: (B, S); pivmin: (B, 1) or (B,).  Returns a
+    (B, S) int32 tensor on the CPU.
+    """
+    d = _np(d).astype(np.float64)
+    e2 = _np(e2).astype(np.float64)
+    shifts = _np(shifts).astype(np.float64)
+    pivmin = _np(pivmin).astype(np.float64).reshape(d.shape[0])
+    B, n = d.shape
+    out = np.zeros(shifts.shape, np.int32)
+    for b in range(B):
+        for s in range(shifts.shape[1]):
+            sig = shifts[b, s]
+            q = d[b, 0] - sig
+            if abs(q) < pivmin[b]:
+                q = -pivmin[b]
+            cnt = 1 if q <= 0.0 else 0
+            for i in range(1, n):
+                q = (d[b, i] - sig) - e2[b, i - 1] / q
+                if abs(q) < pivmin[b]:
+                    q = -pivmin[b]
+                cnt += 1 if q <= 0.0 else 0
+            out[b, s] = cnt
+    return torch.from_numpy(out)
+
+
+def certify_ref(d, e, lam, tol):
+    """Literal certification oracle for the mixed-precision pipeline.
+
+    ``lam[b, j]`` is certified when the float64 Sturm counts bracket the
+    j-th true eigenvalue within ``tol[b]``: ``count(lam - tol) <= j`` and
+    ``count(lam + tol) >= j + 1``.  Built on :func:`sturm_count_ref`; the
+    vectorized 2N-shift certify sweep must agree with it exactly.
+    d: (B, n); e: (B, n-1); lam: (B, n); tol: (B,) or (B, 1).  Returns a
+    (B, n) bool tensor on the CPU.
+    """
+    d = _np(d).astype(np.float64)
+    e = _np(e).astype(np.float64)
+    lam = _np(lam).astype(np.float64)
+    tol = _np(tol).astype(np.float64).reshape(d.shape[0], 1)
+    e2 = e * e
+    safmin = np.finfo(np.float64).tiny
+    pivmin = safmin * np.maximum(1.0, e2.max(axis=1, initial=0.0))
+    j = np.arange(d.shape[1])[None, :]
+    lo = sturm_count_ref(d, e2, lam - tol, pivmin).numpy()
+    hi = sturm_count_ref(d, e2, lam + tol, pivmin).numpy()
+    return torch.from_numpy((lo <= j) & (hi >= j + 1))

@@ -9,7 +9,8 @@
   * on a card (``gpu`` marker, run with ``python -m pytest -m gpu
     --noconftest``: the machine with the card has no JAX), each
     kernel against its plain version at the tolerances of
-    tests/test_kernels.py, f32 scaled by eps.
+    tests/test_kernels.py, f32 scaled by eps; the Sturm-count kernels
+    bit for bit (counts and derivative sums).
 """
 
 import os
@@ -27,6 +28,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.fused_update import secular_postpass_cuda  # noqa: E402
 from repro_torch.kernels.resident_merge import resident_merge_cuda  # noqa: E402
 from repro_torch.kernels.secular_roots import secular_solve_cuda  # noqa: E402
+from repro_torch.kernels.sturm_count import (  # noqa: E402
+    chain_probe_cuda, sturm_count_cuda, sturm_count_newton_cuda)
+from repro_torch.core import bisect as tbis  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
@@ -36,6 +40,8 @@ def test_import_loads_neither_jax_nor_repro_and_needs_no_nvcc():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
+        "import repro_torch.core.bisect, repro_torch.runtime.faults\n"
+        "import repro_torch.kernels.sturm_count\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -155,3 +161,99 @@ def test_batched_kernel_equals_looped_kernel_bitwise(cuda_device):
         zb, rb = secular_postpass_cuda(R[s], d[s], z[s], o[s], t[s], kp[s],
                                        rho[s])
         assert torch.equal(zb[0], zh[b]) and torch.equal(rb[0], rows[b])
+
+
+def _sturm_problem(B, n, S, seed, dtype=torch.float64, device="cpu"):
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((B, n))
+    e = rng.uniform(0.05, 0.5, (B, max(n - 1, 0)))
+    shifts = rng.uniform(-3, 3, (B, S))
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    e2 = t(e * e)
+    return t(d), e2, t(shifts), tbis._pivot_floor(e2)
+
+
+def test_cpu_tensors_take_the_plain_sturm_versions():
+    d, e2, x, piv = _sturm_problem(2, 30, 7, seed=5)
+    before = (sturm_count_cuda.launches, sturm_count_newton_cuda.launches)
+    assert torch.equal(ops.sturm_count_batched(d, e2, x, piv),
+                       tbis.sturm_count_plain(d, e2, x, piv))
+    c, s = ops.count_and_newton_batched(d, e2, x, piv)
+    c2, s2 = tbis._count_and_newton(d, e2, x, piv)
+    assert torch.equal(c, c2) and torch.equal(s, s2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        sturm_count_cuda(d, e2, x, piv[:, 0])
+    assert before == (sturm_count_cuda.launches,
+                      sturm_count_newton_cuda.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,n,S", [(1, 8, 4), (4, 300, 130), (3, 1, 5),
+                                   (2, 257, 1), (8, 33, 64), (1, 1030, 65)])
+def test_sturm_kernels_match_plain_on_card(cuda_device, dtype, B, n, S):
+    """Counts are integers and every operation is rounded on its own, so
+    both kernels equal their plain versions bit for bit."""
+    d, e2, x, piv = _sturm_problem(B, n, S, seed=B * 1000 + n, dtype=dtype,
+                                   device=cuda_device)
+    x[:, -1] = x[:, 0]                      # a duplicate shift
+    cnt = sturm_count_cuda(d, e2, x, piv[:, 0])
+    assert torch.equal(cnt.cpu(), tbis.sturm_count_plain(
+        d.cpu(), e2.cpu(), x.cpu(), piv.cpu()))
+    c2, s2 = sturm_count_newton_cuda(d, e2, x, piv[:, 0])
+    c3, s3 = tbis._count_and_newton(d.cpu(), e2.cpu(), x.cpu(), piv.cpu())
+    assert torch.equal(c2.cpu(), c3) and torch.equal(c2, cnt)
+    assert torch.equal(s2.cpu(), s3)
+
+
+@pytest.mark.gpu
+def test_sturm_kernel_on_eigenvalues_and_zero_couplings(cuda_device):
+    d0, e0 = make_family("normal", 96, seed=3)
+    lam = np.linalg.eigvalsh(np.diag(d0) + np.diag(e0, 1) + np.diag(e0, -1))
+    d = torch.tensor(np.stack([d0, d0]), device=cuda_device)
+    e2 = torch.tensor(np.stack([e0 * e0, np.zeros(95)]), device=cuda_device)
+    x = torch.tensor(np.stack([lam, np.sort(d0)]), device=cuda_device)
+    piv = tbis._pivot_floor(e2)
+    cnt = sturm_count_cuda(d, e2, x, piv[:, 0])
+    assert torch.equal(cnt.cpu(), tbis.sturm_count_plain(
+        d.cpu(), e2.cpu(), x.cpu(), piv.cpu()))
+    np.testing.assert_array_equal(cnt[1].cpu().numpy(), np.arange(1, 97))
+
+
+@pytest.mark.gpu
+def test_sturm_kernel_shift_block_invariance(cuda_device):
+    """How the shifts split into blocks is a tiling matter, never a
+    semantics one: launching column slices of every width gives the
+    counts of one launch."""
+    d, e2, x, piv = _sturm_problem(2, 100, 200, seed=11, device=cuda_device)
+    whole = sturm_count_cuda(d, e2, x, piv[:, 0])
+    for w in (1, 17, 64, 100):
+        parts = [sturm_count_cuda(d, e2, x[:, s:s + w].contiguous(),
+                                  piv[:, 0]) for s in range(0, 200, w)]
+        assert torch.equal(torch.cat(parts, dim=1), whole)
+
+
+@pytest.mark.gpu
+def test_sturm_batched_equals_looped_bitwise(cuda_device):
+    d, e2, x, piv = _sturm_problem(5, 700, 90, seed=12, device=cuda_device)
+    cnt, s = sturm_count_newton_cuda(d, e2, x, piv[:, 0])
+    for b in range(5):
+        sl = slice(b, b + 1)
+        cb, sb = sturm_count_newton_cuda(d[sl], e2[sl], x[sl], piv[sl, 0])
+        assert torch.equal(cb[0], cnt[b]) and torch.equal(sb[0], s[b])
+        assert torch.equal(sturm_count_cuda(d[sl], e2[sl], x[sl],
+                                            piv[sl, 0])[0], cnt[b])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 17, 1000])
+def test_chain_probe_walks_the_count_kernels_recurrence(cuda_device, n):
+    """The one-thread chain probe (the trip's latency bound) computes the
+    same count as the count kernel, over every remainder of its unrolled
+    row groups, and reports a positive cycle count."""
+    d, e2, x, piv = _sturm_problem(1, n, 9, seed=13 + n, device=cuda_device)
+    cnt = sturm_count_cuda(d, e2, x, piv[:, 0])
+    for j in range(9):
+        c, cycles = chain_probe_cuda(d[0], e2[0].contiguous(),
+                                     float(x[0, j]), float(piv[0, 0]))
+        assert int(c) == int(cnt[0, j]) and int(cycles) > 0

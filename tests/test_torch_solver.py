@@ -208,8 +208,8 @@ def test_float32_solve():
     np.testing.assert_allclose(lam.numpy(), _scipy(d, e), rtol=0, atol=bar)
 
 
-@pytest.mark.parametrize("kw", [dict(method="sterf"), dict(certify=True),
-                                dict(precision="mixed"), dict(mesh=2),
+@pytest.mark.parametrize("kw", [dict(method="sterf"), dict(method="lazy"),
+                                dict(method="eigh"), dict(mesh=2),
                                 dict(fused=False)])
 def test_later_slices_raise_not_implemented(kw):
     d, e = make_family("uniform", 40, seed=6)
