@@ -6,15 +6,18 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the four CUDA sources from ``src/repro_torch/csrc`` (one nvcc
+It builds the seven CUDA sources from ``src/repro_torch/csrc`` (one nvcc
 per source, in parallel), then:
 
   1. prints the card (``nvidia-smi`` name and power limit), the CUDA
      version and the build time;
   2. holds each kernel against its plain torch version on the card at the
      main path's shapes, in float64 and float32 (tolerances of
-     tests/test_kernels.py, float32 scaled by eps; the Sturm counts and
-     their derivative sums bit for bit), timing both; times one shift's
+     tests/test_kernels.py, float32 scaled by eps, and scaled by K for
+     the row update's r = K sums; the Sturm counts and their derivative
+     sums bit for bit; the QL kernel at 64 eps ||T||_inf against its plain
+     loop on the CPU), timing both, and the row update beside
+     torch.matmul of a pre-formed Y (the product only); times one shift's
      Sturm chain on one thread (the latency bound of a bisection trip);
   3. drives the main path -- ``eigvalsh_tridiagonal`` at n = 16384
      (uniform) and ``eigvalsh_tridiagonal_batch`` at B = 64, n = 4096 for
@@ -35,6 +38,20 @@ per source, in parallel), then:
      glued batch escalates to native re-solves and takes minutes); a
      range solve on the card is compared
      with the same solve on the CPU, bit for bit (reported, not a gate);
+  7. drives the paper's comparison points, counts zeroed just before and
+     read just after: ``method`` in sterf, lazy, full, eigh and br, and
+     br with ``fused=False``, at n = 4096 (uniform and glued Wilkinson,
+     ``certify=True`` on lazy), the B = 64 x 4096 uniform batch with and
+     without ``fused=False``, and br, ``fused=False`` br, lazy, full and
+     sterf at n = 16384 (sterf at n = 8192 when its n = 4096 time
+     predicts over 120 s), each timed (CUDA events; median of 5 for the
+     BR routes, one run for the others) with its own peak device memory
+     printed beside the matching ``workspace_model_*`` (and the leaf
+     solve's peak alone); every spectrum is held to the phase-3 reference
+     at 64 eps, sterf's at max(64, 3 sqrt(n)) eps (QL's error grows as
+     sqrt(n), the JAX package's QL's too: see _sterf_bar); the QL kernel
+     is held to its plain loop at n = 4096 and timed beside
+     torch.linalg.eigvalsh of the pre-formed dense T;
   5. times the n = 16384 solve and the B = 64 batch, the Sturm path's
      range, bisect, certify and mixed solves (CUDA events, median of 5
      after a warm-up), then traces one run of the two main-path solves,
@@ -67,9 +84,25 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Peak rates for the bound (NVIDIA H100 SXM data sheet, full 700 W
-# limit): FP64 outside the tensor cores and FP32, and HBM bandwidth.
+# limit): FP64 outside the tensor cores and FP32, FP64 on the tensor cores
+# (DMMA), and HBM bandwidth.
 PEAK_FLOPS = {"float64": 34e12, "float32": 67e12}
+PEAK_FP64_TENSOR = 67e12
 PEAK_BYTES = 3.35e12
+
+# A method at n = 16384 whose predicted time exceeds this runs at n = 8192.
+CUT_S = 120.0
+
+
+def _sterf_bar(n):
+    """sterf's bar in eps * max(1, ||T||_inf): the conformance bar of 64,
+    or 3 sqrt(n) where that is larger.  QL as the JAX package writes it
+    (NR tqli's split test, unscaled rotations) errs by 0.97-1.31 sqrt(n)
+    against stebz at n = 1024-16384 (the JAX package's own sterf 40.72 and
+    77.09 at n = 1024 and 4096 -- scripts/torch_reference_check.py
+    sterf_growth -- and this script's phase 7), and the kernel and the
+    plain loop part by 1.59 sqrt(n) at n = 4096."""
+    return max(64.0, 3.0 * n ** 0.5)
 
 def _reference(d, e, lam, gap):
     """scipy's eigenvalues of (d, e), adjudicated by stebz wherever the
@@ -147,6 +180,61 @@ def _cpu_range(src, d, e, il, iu):
                                       device="cpu").numpy()
 
 
+def _plain_sterf(src, d, e):
+    """The port's plain QL loop on the CPU (runs in a worker process):
+    (eigenvalues, seconds)."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.core.sterf import sterf_plain
+    t0 = time.perf_counter()
+    lam, _ = sterf_plain(torch.tensor(d)[None], torch.tensor(e)[None])
+    return lam[0].numpy(), time.perf_counter() - t0
+
+
+def _cuda_once(torch, fn):
+    """(result, milliseconds) of one call of ``fn`` between CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _dense_y(torch, d, w, origin, tau, kprime):
+    """The normalized secular eigenvector blocks Y (B, K, K) that the row
+    update never forms (deflated columns identity): R @ Y is the update."""
+    B, K = d.shape
+    d_org = torch.gather(d, 1, origin.long())
+    active = torch.arange(K, device=d.device)[None, :] < kprime[:, None]
+    delta = (d[:, :, None] - d_org[:, None, :]) - tau[:, None, :]
+    act_i = active[:, :, None]
+    Y = torch.where(act_i, w[:, :, None] / torch.where(
+        act_i & (delta != 0), delta, torch.ones_like(delta)),
+        torch.zeros_like(delta))
+    del delta
+    nrm = torch.sqrt((Y * Y).sum(1))
+    Y /= torch.where(nrm > 0, nrm, torch.ones_like(nrm))[:, None, :]
+    eye = torch.eye(K, dtype=d.dtype, device=d.device)
+    return torch.where(active[:, None, :], Y, eye)
+
+
+def _zhat_ops(kp):
+    """Per (active pole, active root) pair: three subtractions, two logs
+    and two sums; a log counts as one operation."""
+    return float((kp.astype("float64") ** 2).sum()) * 7
+
+
+def _boundary_ops(kp, r):
+    """Per (active pole, active root) pair: the difference (2), one
+    division, r multiply-adds (2r) and the norm's (2).  Returns (FMA
+    operations of the product, the rest)."""
+    pairs = float((kp.astype("float64") ** 2).sum())
+    return pairs * 2 * r, pairs * 5
+
+
 def _sturm_ops(B, n, S, newton):
     """Floating-point operations of one count sweep: two subtractions and
     one division per (problem, shift, row); the derivative adds a
@@ -198,16 +286,22 @@ def main() -> int:
                                   eigvalsh_tridiagonal_range,
                                   execute_request, make_family,
                                   make_family_batch)
+    from repro_torch.core import baselines as bl
     from repro_torch.core import bisect as bis
     from repro_torch.core import secular as sec
+    from repro_torch.core import sterf as qlmod
     from repro_torch.core import tune
+    from repro_torch.core.br_dc import workspace_model
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
     from repro_torch.kernels.fused_update import secular_postpass_cuda
     from repro_torch.kernels.resident_merge import resident_merge_cuda
     from repro_torch.kernels.secular_roots import secular_solve_cuda
+    from repro_torch.kernels.sterf import sterf_cuda
     from repro_torch.kernels.sturm_count import (chain_probe_cuda,
                                                  sturm_count_cuda,
                                                  sturm_count_newton_cuda)
+    from repro_torch.kernels.zhat import zhat_reconstruct_cuda
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -220,7 +314,8 @@ def main() -> int:
     # ---- phase 1: device and build --------------------------------------
     t0 = time.perf_counter()
     logs = _build.build_all(["secular_roots", "fused_update",
-                             "resident_merge", "sturm_count"])
+                             "resident_merge", "sturm_count", "zhat",
+                             "boundary_update", "sterf"])
     build_s = time.perf_counter() - t0
     print(f"[1 device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernels built in {build_s:.1f} s")
@@ -230,6 +325,10 @@ def main() -> int:
                 print(f"[1 ptxas] {name}: {line.strip()}")
 
     # ---- phase 2: every kernel against its plain version ----------------
+    # The row inputs R come from torch's generator: seeded, so a reading
+    # repeats from run to run.
+    torch.manual_seed(0)
+
     def problem(B, K, kprime, seed, dtype):
         rng = np.random.default_rng(seed)
         d = np.sort(rng.standard_normal((B, K)), axis=1)
@@ -246,31 +345,22 @@ def main() -> int:
              if dtype == torch.float32 else 1.0)
         return 1e-13 * s, 1e-12 * s, 1e-10 * s
 
-    nan_seen = []
-
     def excess(a, b, atol, rtol):
-        """max |a - b| over the finite entries, and whether the two have
-        NaN at the same entries and stay within atol + rtol |b| elsewhere.
-        (Float32 weights can overflow their ratio product at K = 2048 --
-        the JAX package does the same, ROADMAP Queue 3 -- so a NaN is
-        held to the plain version's NaN.)"""
-        nan = torch.isnan(b)
-        same = bool(torch.equal(torch.isnan(a), nan))
-        diff = torch.where(nan, torch.zeros_like(b), (a - b).abs())
-        nan_seen.append(int(nan.sum()))
-        return float(diff.max()), same and bool(
-            (diff <= atol + rtol * torch.where(nan, 0.0, b).abs()).all())
+        """max |a - b|, and whether both are finite everywhere and within
+        atol + rtol |b|.  A NaN fails: the float32 weights of the
+        seed-2050 resident problem, once NaN where two poles coincide in
+        float32, are finite since the repair of ROADMAP Queue 3 item 2."""
+        diff = (a - b).abs()
+        finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
+        return float(diff.max()), finite and bool(
+            (diff <= atol + rtol * b.abs()).all())
 
     record = {}
 
-    def report(name, dtype, shape, err, ok, k_ms, p_ms):
+    def report(name, dtype, shape, err, ok, k_ms, p_ms, extra=""):
         tag = str(dtype).replace("torch.", "")
-        nans = sum(nan_seen)
-        nan_seen.clear()
         print(f"[2 kernel] {name} {tag} {shape}: max_abs_err {err:.3e} "
-              f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms"
-              + (f" ({nans} NaN in both, at the same entries)" if nans
-                 else ""))
+              f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms{extra}")
         if not ok:
             raise AssertionError(f"{name} {tag} {shape} disagrees with its "
                                  f"plain version (max_abs_err {err:.3e})")
@@ -358,6 +448,79 @@ def main() -> int:
                         flops=(_secular_ops(kps, niter)
                                + _postpass_ops(kps, r)),
                         nbytes=nbytes, dtype=tag)
+        # Two-pass conquer kernels (fused=False and the r = K baselines):
+        # the log-space weights and the any-row update at the shapes the
+        # path gives them -- r = 3 rows at K = 4096 (B = 4) and 8192
+        # (B = 2), the top levels of an n = 16384 fused=False solve, and
+        # r = K rows at K = 2048 and 4096 (B = 1), the top levels of an
+        # n = 4096 full-vector solve.  r = K sums run over K terms: their
+        # tolerance scales by K / 64.  Yardstick: torch.matmul of the
+        # pre-formed normalized Y (the product only, never the port).
+        for B, K, r in ((4, 4096, 3), (2, 8192, 3), (1, 2048, 2048),
+                        (1, 4096, 4096)):
+            kp = (7 * K) // 8
+            d, z, rho, kpr = problem(B, K, kp, seed=K + r + 7, dtype=dtype)
+            o, t = secular_solve_cuda(d, z * z, rho, kpr, niter=niter)
+            run_k = lambda: zhat_reconstruct_cuda(  # noqa: E731
+                d, z, o, t, kpr, rho)
+            run_p = lambda: sec.zhat_reconstruct_batched(  # noqa: E731
+                d, z, o, t, kpr, rho, chunk=256)
+            w, wp = run_k(), run_p()
+            ez, okz = excess(w, wp, atol, rtol)
+            zk_ms, zp_ms = _cuda_ms(torch, run_k), _cuda_ms(torch, run_p, 3)
+            kps = kpr.cpu().numpy()
+            if r == 3:
+                report("zhat", dtype, (B, K, kp), ez, okz, zk_ms, zp_ms)
+                if tag == "float64":
+                    record[("zhat", K)] = dict(
+                        max_abs_err=ez, ms=zk_ms, plain_ms=zp_ms, B=B, K=K,
+                        kp=kp, flops=_zhat_ops(kps),
+                        nbytes=(4 * 8 + 4) * B * K + 12 * B)
+            R = torch.randn(B, r, K, dtype=dtype, device=dev)
+            run_k = lambda: boundary_rows_update_cuda(  # noqa: E731
+                R, d, w, o, t, kpr)
+            run_p = lambda: sec.boundary_rows_update_batched(  # noqa: E731
+                R, d, w, o, t, kpr, chunk=256)
+            sc = max(1.0, K / 64) if r > 4 else 1.0
+            eb, okb = excess(run_k(), run_p(), atol * sc, rtol * sc)
+            bk_ms, bp_ms = _cuda_ms(torch, run_k), _cuda_ms(torch, run_p, 3)
+            Y = _dense_y(torch, d, w, o, t, kpr)
+            lib_ms = _cuda_ms(torch, lambda: torch.matmul(R, Y))
+            del Y
+            report("boundary_update", dtype, (B, r, K, kp), eb, okb, bk_ms,
+                   bp_ms, f"; torch.matmul of a pre-formed Y (product "
+                   f"only) {lib_ms:.3f} ms")
+            if tag == "float64":
+                record[("boundary", r, K)] = dict(
+                    max_abs_err=eb, ms=bk_ms, plain_ms=bp_ms,
+                    library_ms=lib_ms, B=B, K=K, kp=kp, r=r,
+                    ops=_boundary_ops(kps, r),
+                    nbytes=((2 * r + 3) * 8 + 4) * B * K + 4 * B)
+
+    # QL kernel vs its plain loop on the CPU at n = 256, f64 and f32, held
+    # at sterf's bar (64 eps ||T||_inf at this n): hypot differs between
+    # math libraries by an ulp, which moves QL's trajectory by about the
+    # algorithm's own error (the plain loop and repro's sterf differ by
+    # 21 eps at n = 256 on the CPU).
+    for dtype in (torch.float64, torch.float32):
+        for fam in ("uniform", "glued_wilkinson"):
+            d, e = make_family(fam, 256, seed=256)
+            dh = torch.tensor(d, dtype=dtype)[None]
+            eh = torch.tensor(e, dtype=dtype)[None]
+            dd, ed = dh.to(dev), eh.to(dev)
+            lam_k, steps_k = sterf_cuda(dd, ed)
+            t0 = time.perf_counter()
+            lam_p, steps_p = qlmod.sterf_plain(dh, eh)
+            p_ms = (time.perf_counter() - t0) * 1e3
+            err = float((lam_k.cpu() - lam_p).abs().max())
+            bar = (_sterf_bar(256) * float(torch.finfo(dtype).eps)
+                   * max(1.0, _tinf(d, e)))
+            k_ms = _cuda_ms(torch, lambda: sterf_cuda(dd, ed))
+            report("sterf", dtype, (fam, 256), err,
+                   bool(torch.isfinite(lam_k).all()) and err <= bar, k_ms,
+                   p_ms, f" (plain on the CPU); rotations kernel "
+                   f"{int(steps_k[0])} plain {int(steps_p[0])}; bar "
+                   f"{bar:.3e}")
 
     # Sturm counts: the certify sweep of the batched front door (B = 64,
     # n = 4096, S = 2n shifts) and one bisection trip of a range solve
@@ -456,6 +619,11 @@ def main() -> int:
     pool = ProcessPoolExecutor(max_workers=min(7, os.cpu_count() or 1),
                                mp_context=mp.get_context("spawn"))
     jobs = []
+    src = os.path.join(HERE, "src")
+    # The plain QL loop at phase 7's n = 4096 takes tens of seconds on the
+    # CPU: it starts first.
+    Du, Eu = batches["uniform"]
+    plain_ql = pool.submit(_plain_sterf, src, Du[0], Eu[0])
 
     def check_later(key, label, d, e, lam):
         scale = eps * max(1.0, _tinf(d, e))
@@ -517,8 +685,6 @@ def main() -> int:
               f"numpy.linalg.eigh rows up to sign: max {row_err:.3e}")
 
         # ---- phase 6: the Sturm-count path (references keep running) ---
-        Du, Eu = batches["uniform"]
-        src = os.path.join(HERE, "src")
         cpu_band = pool.submit(_cpu_range, src, Du[0], Eu[0], 2000, 2063)
         for k in kernels + sturm_kernels:
             k.launches = 0
@@ -585,6 +751,144 @@ def main() -> int:
             print(f"[6 robust] {label}: {tally}{pol}; escalations "
                   f"{diag.get('escalations', 'none')}{wall}")
 
+        # ---- phase 7: the comparison points (references keep running) ---
+        two_pass = (zhat_reconstruct_cuda, boundary_rows_update_cuda)
+        every = kernels + sturm_kernels + two_pass + (sterf_cuda,)
+        names = [k.__name__ for k in every]
+        for k in every:
+            k.launches = 0
+        cmp = {}
+
+        def drive(label, key, fn, reps=1):
+            """One run (launch counts and peak memory), then the time:
+            median of ``reps`` between CUDA events after a warm-up, or that
+            one run when reps == 1."""
+            before = [k.launches for k in every]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            lam, ms = _cuda_once(torch, fn)
+            # The solve's own peak: what it allocated above the tensors
+            # that were already live when it started.
+            peak = torch.cuda.max_memory_allocated() - base
+            used = dict(zip(names, (k.launches - b
+                                    for k, b in zip(every, before))))
+            if reps > 1:
+                ms = _cuda_ms(torch, fn, reps)
+            cmp[label] = dict(lam=lam.cpu().numpy(), key=key, used=used,
+                              ms=ms, peak=peak, reps=reps)
+            return cmp[label]
+
+        Dg, Eg = batches["glued_wilkinson"]
+        for fam, d, e in (("uniform", Du[0], Eu[0]),
+                          ("glued_wilkinson", Dg[0], Eg[0])):
+            for m in ("sterf", "lazy", "full", "eigh", "br"):
+                drive(f"{m} n=4096 {fam}", (fam, 0),
+                      lambda: eigvalsh_tridiagonal(d, e, method=m))
+            drive(f"br fused=False n=4096 {fam}", (fam, 0),
+                  lambda: eigvalsh_tridiagonal(d, e, fused=False))
+        lazy_cert = execute_request(SolveRequest(
+            d=Du[0], e=Eu[0], method="lazy", certify=True))
+        cmp["lazy certify=True n=4096 uniform"] = dict(
+            lam=lazy_cert.eigenvalues.cpu().numpy(), key=("uniform", 0),
+            used=None, ms=None, peak=None, reps=0)
+        for fused in (True, False):
+            drive(f"br{'' if fused else ' fused=False'} B=64 x 4096 "
+                  f"uniform", "uniform batch",
+                  lambda: eigvalsh_tridiagonal_batch(
+                      Du, Eu, fused=fused).eigenvalues, reps=5)
+        # The leaf solve alone (one batched torch.linalg.eigh of the 32 x 32
+        # blocks) at the batch's and the n = 16384 solve's counts, for the
+        # peaks above.
+        for blocks in (64 * 128, 512):
+            A = torch.randn(blocks, 32, 32, dtype=torch.float64, device=dev)
+            A = A + A.transpose(1, 2)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            torch.linalg.eigh(A)
+            torch.cuda.synchronize()
+            print(f"[7 memory] torch.linalg.eigh of {blocks} 32 x 32 "
+                  f"blocks (the leaf solve): peak "
+                  f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f}"
+                  f" MiB over its {A.numel() * 8 / 2**20:.1f} MiB input")
+            del A
+        # n = 16384: the BR routes timed as a median of 5, the quadratic
+        # ones and sterf once.  sterf's QL work grows as n^2, so its
+        # n = 4096 time predicts the n = 16384 one.
+        big = {}
+        ref8 = None
+        big["br"] = drive("br n=16384 uniform", "u16",
+                          lambda: eigvalsh_tridiagonal(d16, e16), reps=5)
+        big["br fused=False"] = drive(
+            "br fused=False n=16384 uniform", "u16",
+            lambda: eigvalsh_tridiagonal(d16, e16, fused=False), reps=5)
+        for m in ("lazy", "full"):
+            big[m] = drive(f"{m} n=16384 uniform", "u16",
+                           lambda: eigvalsh_tridiagonal(d16, e16, method=m))
+        predicted_s = cmp["sterf n=4096 uniform"]["ms"] * 16 / 1e3
+        if predicted_s > CUT_S:
+            print(f"[7 compare] sterf at n=16384 is cut to n=8192: its "
+                  f"n=4096 time predicts {predicted_s:.1f} s (QL work grows "
+                  f"as n^2), over the {CUT_S:.0f} s limit of one solve")
+            d8, e8 = make_family("uniform", 8192, seed=0)
+            big["sterf"] = drive("sterf n=8192 uniform", "u8",
+                                 lambda: eigvalsh_tridiagonal(
+                                     d8, e8, method="sterf"))
+            big["sterf"]["n"] = 8192
+            scale8 = eps * max(1.0, _tinf(d8, e8))
+            ref8 = pool.submit(_reference, d8, e8, big["sterf"]["lam"],
+                               8 * scale8)
+        else:
+            big["sterf"] = drive("sterf n=16384 uniform", "u16",
+                                 lambda: eigvalsh_tridiagonal(
+                                     d16, e16, method="sterf"))
+        phase7 = dict(zip(names, (k.launches for k in every)))
+        ql_d = torch.tensor(Du[0], device=dev)[None]
+        ql_e = torch.tensor(Eu[0], device=dev)[None]
+        (ql_lam, ql_steps), ql_ms = _cuda_once(
+            torch, lambda: sterf_cuda(ql_d, ql_e))
+        # The library call for the same function: torch.linalg.eigvalsh of
+        # the dense T, formed before the clock starts.
+        ql_dense = (torch.diag(ql_d[0]) + torch.diag(ql_e[0], 1)
+                    + torch.diag(ql_e[0], -1))
+        ql_lib_ms = _cuda_ms(torch, lambda: torch.linalg.eigvalsh(ql_dense),
+                             reps=3)
+        del ql_dense
+        print(f"[7 compare] launches in the phase: {phase7}")
+        for label, c in cmp.items():
+            if c["used"] is None:
+                continue
+            used = {k: v for k, v in c["used"].items() if v}
+            print(f"[7 compare] {label}: {c['ms']:.1f} ms"
+                  f"{' (median of 5)' if c['reps'] > 1 else ' (one run)'}; "
+                  f"own peak device memory {c['peak'] / 2**20:.1f} MiB; "
+                  f"launches {used}")
+        for label, c in cmp.items():
+            if c["used"] is None:
+                continue
+            two = [c["used"][k.__name__] for k in two_pass]
+            if ("lazy" in label or "full" in label
+                    or "fused=False" in label) and min(two) == 0:
+                raise AssertionError(f"{label}: a two-pass kernel never "
+                                     f"launched: {two}")
+            if "sterf" in label and c["used"]["sterf_cuda"] == 0:
+                raise AssertionError(f"{label}: the QL kernel never "
+                                     f"launched")
+        n_ql = big["sterf"].get("n", 16384)
+        models = {"br": workspace_model(16384)["total_bytes"],
+                  "br fused=False": workspace_model(16384)["total_bytes"],
+                  "lazy": bl.workspace_model_lazy(16384)["persistent_bytes"],
+                  "full": bl.workspace_model_full(16384)["persistent_bytes"],
+                  "sterf": bl.workspace_model_sterf(n_ql)["persistent_bytes"]}
+        for m, c in big.items():
+            print(f"[7 memory] {m} n={c.get('n', 16384)}: own peak device "
+                  f"memory {c['peak'] / 2**20:.1f} MiB, model "
+                  f"({'workspace_model' if m.startswith('br') else 'workspace_model_' + m}) "
+                  f"{models[m] / 2**20:.1f} MiB; time {c['ms']:.1f} ms "
+                  f"({'median of 5' if c['reps'] > 1 else 'one run'}, "
+                  f"{smi})")
+
         worst = {}
         refs = {}
         for key, label, d, lam, scale, fut in jobs:
@@ -602,6 +906,9 @@ def main() -> int:
                 raise AssertionError(f"{label}: max error {ratio:.2f} "
                                      f"eps*||T||_inf, above the bar of 64")
         band_cpu = cpu_band.result()
+        ql_plain, ql_plain_s = plain_ql.result()
+        if ref8 is not None:
+            refs["u8"] = (ref8.result()[0], scale8)
     finally:
         pool.shutdown(cancel_futures=True)
     for label, (ratio, redo, redo_err) in worst.items():
@@ -613,9 +920,10 @@ def main() -> int:
     # ---- phase 6 checks: every Sturm-path spectrum vs the references ----
     held = {}
 
-    def hold(label, got, key, sl, br=None):
-        """got vs the phase-3 reference at 64 eps and, for range results,
-        vs the full BR solve ``br`` at 8 eps."""
+    def hold(label, got, key, sl, br=None, bar=64.0):
+        """got vs the phase-3 reference at ``bar`` eps (64, the
+        conformance bar, unless a method documents another) and, for range
+        results, vs the full BR solve ``br`` at 8 eps."""
         ref, scale = refs[key]
         ref = ref[sl]
         if not (got.shape == ref.shape and np.isfinite(got).all()):
@@ -623,14 +931,14 @@ def main() -> int:
         r64 = float(np.abs(got - ref).max()) / scale if got.size else 0.0
         r8 = (float(np.abs(got - br[sl]).max()) / scale
               if br is not None and got.size else None)
-        w = held.setdefault(label, [0.0, None])
+        w = held.setdefault(label, [0.0, None, bar])
         w[0] = max(w[0], r64)
         if r8 is not None:
             w[1] = max(w[1] or 0.0, r8)
-        if r64 > 64 or (r8 is not None and r8 > 8):
+        if r64 > bar or (r8 is not None and r8 > 8):
             raise AssertionError(f"{label}: {r64:.2f} eps*||T||_inf from "
-                                 f"the reference (bar 64), {r8} from the "
-                                 f"BR solve (bar 8)")
+                                 f"the reference (bar {bar:.0f}), {r8} from "
+                                 f"the BR solve (bar 8)")
 
     for name, (il, iu) in windows.items():
         hold(f"range {name} n=16384", sturm[name], "u16",
@@ -658,11 +966,41 @@ def main() -> int:
             fam = label.split()[1]
             for b in range(lam.shape[0]):
                 hold(label, lam[b], (fam, b), slice(None))
-    for label, (r64, r8) in held.items():
+    for label, (r64, r8, _) in held.items():
         print(f"[6 sturm] {label}: max error {r64:.2f} eps*||T||_inf vs the "
               f"reference (bar 64)"
               + (f", {r8:.2f} vs the full BR solve (bar 8)"
                  if r8 is not None else ""))
+    # ---- phase 7 checks: every comparison point vs the references ------
+    # sterf's error grows as sqrt(n) (see _sterf_bar): it is held to
+    # _sterf_bar(n), the others to the conformance bar of 64.
+    for label, c in cmp.items():
+        lam, key = c["lam"], c["key"]
+        if key == "uniform batch":
+            for b in range(lam.shape[0]):
+                hold(label, lam[b], ("uniform", b), slice(None))
+            continue
+        bar = _sterf_bar(lam.size) if label.startswith("sterf") else 64.0
+        hold(label, lam, key, slice(None), bar=bar)
+    for label, c in cmp.items():
+        print(f"[7 compare] {label}: max error {held[label][0]:.2f} "
+              f"eps*||T||_inf vs the reference (bar {held[label][2]:.0f})")
+    # At n = 4096 both runs are off by tens of eps and their trajectories
+    # part: held to each other at _sterf_bar(4096).
+    ql_err = float(np.abs(ql_lam[0].cpu().numpy() - ql_plain).max())
+    ql_unit = eps * max(1.0, _tinf(Du[0], Eu[0]))
+    ql_bar = _sterf_bar(4096) * ql_unit
+    print(f"[7 compare] sterf kernel n=4096 uniform: {ql_ms:.1f} ms (one "
+          f"run), {int(ql_steps[0])} rotations, "
+          f"{ql_ms * 1e6 / int(ql_steps[0]):.1f} ns per rotation; plain "
+          f"loop on the CPU {ql_plain_s:.1f} s; max diff {ql_err:.3e} = "
+          f"{ql_err / ql_unit:.2f} eps*||T||_inf (bar "
+          f"{_sterf_bar(4096):.0f}); library torch.linalg.eigvalsh of the "
+          f"pre-formed dense T {ql_lib_ms:.1f} ms (median of 3); the "
+          f"kernel takes {ql_ms / ql_lib_ms:.1f}x the library's time ({smi})")
+    if not ql_err <= ql_bar:
+        raise AssertionError(f"sterf kernel vs plain at n=4096: {ql_err}")
+
     diff = np.abs(card_band - band_cpu)
     print(f"[6 sturm] range [2000, 2064) of a uniform n=4096 problem, card "
           f"vs CPU: bitwise {bool(np.array_equal(card_band, band_cpu))}, "
@@ -703,6 +1041,12 @@ def main() -> int:
         "range bottom 64, n=16384"])
     _profile(torch, "mixed, n=16384", sturm_paths["mixed, n=16384"])
     _profile(torch, "mixed, B=64 x 4096", sturm_paths["mixed, B=64 x 4096"])
+    _profile(torch, "br fused=False, n=16384", lambda: eigvalsh_tridiagonal(
+        d16, e16, fused=False))
+    _profile(torch, "full, n=16384", lambda: eigvalsh_tridiagonal(
+        d16, e16, method="full"))
+    _profile(torch, "lazy, n=16384", lambda: eigvalsh_tridiagonal(
+        d16, e16, method="lazy"))
 
     sources = {"secular_roots": ("src/repro_torch/csrc/secular_roots.cu",
                                  "src/repro/kernels/secular_roots.py:265"),
@@ -736,11 +1080,6 @@ def main() -> int:
         "plain_ms": count["plain_ms"], "bound_ms": bounds["certify", 0][0],
         "bound_by": bounds["certify", 0][1], "library_ms": None,
         "shape": "B=64 n=4096 S=8192 f64",
-        "launches_newton": int(sturm_launches[1]),
-        "newton_ms": newton["ms"], "newton_plain_ms": newton["plain_ms"],
-        "newton_max_abs_err": newton["max_abs_err"],
-        "newton_bitwise": newton["bitwise"],
-        "newton_bound_ms": bounds["certify", 1][0],
         "trip_shape": "B=1 n=16384 S=64 f64",
         "trip_ms": trip["sturm_count"]["ms"],
         "trip_plain_ms": trip["sturm_count"]["plain_ms"],
@@ -748,9 +1087,67 @@ def main() -> int:
         "trip_chain_bound_ms": trip["chain_ms"],
         "chain_ns_per_row": trip["chain_ns_row"],
         "chain_cycles_per_row": trip["chain_cycles_row"],
-        "trip_newton_ms": trip["sturm_count_newton"]["ms"],
-        "trip_newton_plain_ms": trip["sturm_count_newton"]["plain_ms"],
         "trip_chain_rows": trip["n"]})
+    out.append({
+        "name": "sturm_count_newton", "route": "cuda",
+        "source": "src/repro_torch/csrc/sturm_count.cu",
+        "replaces": "src/repro/core/bisect.py:155 (XLA scan, not Pallas)",
+        "launches": int(sturm_launches[1]),
+        "max_abs_err": newton["max_abs_err"], "ms": newton["ms"],
+        "plain_ms": newton["plain_ms"], "bound_ms": bounds["certify", 1][0],
+        "bound_by": bounds["certify", 1][1], "library_ms": None,
+        "shape": "B=64 n=4096 S=8192 f64", "bitwise": newton["bitwise"],
+        "trip_ms": trip["sturm_count_newton"]["ms"],
+        "trip_plain_ms": trip["sturm_count_newton"]["plain_ms"],
+        "trip_bound_ms": bounds["trip", 1][0]})
+    zr = record[("zhat", 8192)]
+    zb, zb_by = _bound_ms(zr["flops"], zr["nbytes"], "float64")
+    out.append({
+        "name": "zhat", "route": "cuda",
+        "source": "src/repro_torch/csrc/zhat.cu",
+        "replaces": "src/repro/kernels/zhat.py:80",
+        "launches": int(phase7["zhat_reconstruct_cuda"]),
+        "max_abs_err": zr["max_abs_err"], "ms": zr["ms"],
+        "plain_ms": zr["plain_ms"], "bound_ms": zb, "bound_by": zb_by,
+        "library_ms": None,
+        "shape": f"B={zr['B']} K={zr['K']} kprime={zr['kp']} f64"})
+    for r, K in ((4096, 4096), (3, 8192)):
+        br_ = record[("boundary", r, K)]
+        fma, rest = br_["ops"]
+        t_ops = fma / PEAK_FP64_TENSOR + rest / PEAK_FLOPS["float64"]
+        t_bytes = br_["nbytes"] / PEAK_BYTES
+        br_["bound"] = (max(t_ops, t_bytes) * 1e3,
+                        "operations" if t_ops >= t_bytes else "bytes")
+        br_["bound_no_tensor_ms"] = max(
+            (fma + rest) / PEAK_FLOPS["float64"], t_bytes) * 1e3
+    bk, b3 = record[("boundary", 4096, 4096)], record[("boundary", 3, 8192)]
+    out.append({
+        "name": "boundary_update", "route": "cuda",
+        "source": "src/repro_torch/csrc/boundary_update.cu",
+        "replaces": "src/repro/kernels/boundary_update.py:85",
+        "launches": int(phase7["boundary_rows_update_cuda"]),
+        "max_abs_err": bk["max_abs_err"], "ms": bk["ms"],
+        "plain_ms": bk["plain_ms"], "bound_ms": bk["bound"][0],
+        "bound_by": bk["bound"][1], "library_ms": bk["library_ms"],
+        "library": "torch.matmul of a pre-formed Y (product only)",
+        "shape": f"B=1 r=K=4096 kprime={bk['kp']} f64",
+        "bound_no_tensor_ms": bk["bound_no_tensor_ms"],
+        "r3_shape": f"B=2 r=3 K=8192 kprime={b3['kp']} f64",
+        "r3_ms": b3["ms"], "r3_plain_ms": b3["plain_ms"],
+        "r3_bound_ms": b3["bound"][0], "r3_library_ms": b3["library_ms"],
+        "r3_max_abs_err": b3["max_abs_err"]})
+    steps = int(ql_steps[0])
+    qb, qb_by = _bound_ms(19.0 * steps, 3 * 4096 * 8, "float64")
+    out.append({
+        "name": "sterf", "route": "cuda",
+        "source": "src/repro_torch/csrc/sterf.cu",
+        "replaces": "src/repro/core/sterf.py:86 (XLA loop, not Pallas)",
+        "launches": int(phase7["sterf_cuda"]),
+        "max_abs_err": ql_err, "ms": ql_ms, "plain_ms": ql_plain_s * 1e3,
+        "bound_ms": qb, "bound_by": qb_by, "library_ms": ql_lib_ms,
+        "library": "torch.linalg.eigvalsh of a pre-formed dense T",
+        "shape": "B=1 n=4096 uniform f64 (one run; plain on the CPU)",
+        "rotations": steps, "ns_per_rotation": ql_ms * 1e6 / steps})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

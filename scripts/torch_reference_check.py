@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Accuracy probes behind PERF.md's reference notes (CPU only).
 
-    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_reference_check.py
+    PYTHONPATH=src JAX_PLATFORMS=cpu python scripts/torch_reference_check.py \
+        [drivers] [crawl] [mixed_rounds] [sterf_growth]
+
+(all four probes when none is named)
 
 1. scipy's reference drivers at n = 4096: for the uniform and clustered
    families (seed 0), the error of ``eigh_tridiagonal``'s default driver,
@@ -16,6 +19,10 @@
    and its refine rounds at n = 256, 512 and 2048 (seed 1), and the
    port's at n = 256 and 512 (the port re-solves lanes its last round
    could not certify).
+4. QL's error growth (ROADMAP Queue 3 item 5): the JAX package's
+   ``method="sterf"`` and the port's plain QL loop (``device="cpu"``) on
+   the uniform family (seed 100: ``chip_smoke.py``'s n = 4096 problem)
+   at n = 1024 and 4096, against ``stebz``, with each error over sqrt(n).
 
 Errors are printed in units of eps * max(1, ||T||_inf).
 """
@@ -127,7 +134,33 @@ def mixed_rounds():
         print(line)
 
 
+def sterf_growth():
+    import time
+
+    import jax
+    jax.config.update("jax_enable_x64", True)
+    from repro.core import eigvalsh_tridiagonal as jax_eig
+    from repro_torch.core import eigvalsh_tridiagonal, make_family
+    for n in (1024, 4096):
+        d, e = make_family("uniform", n, seed=100)
+        ref = sla.eigh_tridiagonal(d, e, eigvals_only=True,
+                                   lapack_driver="stebz")
+        u = _unit(d, e)
+        line = f"sterf uniform n={n} seed 100, max error vs stebz:"
+        for name, solve in (
+                ("jax", lambda: np.asarray(jax_eig(d, e, method="sterf"))),
+                ("port", lambda: eigvalsh_tridiagonal(
+                    d, e, method="sterf", device="cpu").numpy())):
+            t = time.perf_counter()
+            err = np.abs(solve() - ref).max() / u
+            line += (f" {name} {err:.2f} ({err / np.sqrt(n):.3f} sqrt(n), "
+                     f"{time.perf_counter() - t:.1f} s)")
+        print(line, flush=True)
+
+
 if __name__ == "__main__":
-    drivers()
-    crawl()
-    mixed_rounds()
+    import sys
+    probes = {f.__name__: f for f in (drivers, crawl, mixed_rounds,
+                                      sterf_growth)}
+    for name in sys.argv[1:] or probes:
+        probes[name]()

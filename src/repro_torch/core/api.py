@@ -5,6 +5,10 @@
     lam = eigvalsh_tridiagonal(d, e, device="cpu")   # plain torch path
     lam = eigvalsh_tridiagonal(D, E)                 # stacked (B, n) batch
     lam = eigvalsh_tridiagonal(d, e, method="bisect")      # Sturm bisection
+    lam = eigvalsh_tridiagonal(d, e, method="sterf")       # QL baseline
+    lam = eigvalsh_tridiagonal(d, e, method="lazy")        # lazy-replay D&C
+    lam = eigvalsh_tridiagonal(d, e, method="full")        # full-vector D&C
+    lam = eigvalsh_tridiagonal(d, e, fused=False)          # two-pass conquer
     lam = eigvalsh_tridiagonal(d, e, precision="mixed")    # f32 tree + f64
     lam = eigvalsh_tridiagonal(d, e, certify=True)         # Sturm-certified
     top = eigvalsh_tridiagonal_range(d, e, il=n - 8, iu=n - 1)
@@ -32,8 +36,10 @@ def eigvalsh_tridiagonal(d, e, method: str = "br", device=None, **knobs):
     """All eigenvalues (ascending) of the symmetric tridiagonal (d, e).
 
     1-D inputs solve one problem and return (n,); stacked (B, n) /
-    (B, n-1) inputs solve the batch natively and return (B, n).  Runs on
-    the CUDA card unless ``device="cpu"``; with no card and no
+    (B, n-1) inputs return (B, n), solved natively batched for "br" and
+    "bisect" and one problem at a time for the baselines ("sterf",
+    "lazy", "full", "eigh"), which exist to model per-problem state.
+    Runs on the CUDA card unless ``device="cpu"``; with no card and no
     ``device="cpu"`` it raises.
 
     ``method="br"`` (boundary-row D&C) takes the knobs of
@@ -43,8 +49,10 @@ def eigvalsh_tridiagonal(d, e, method: str = "br", device=None, **knobs):
     Every method accepts ``certify=True``: one extra batched Sturm-count
     sweep verifies each eigenvalue against (d, e) and escalates misses or
     non-finite outputs down the degradation ladder (mixed -> native D&C
-    -> per-lane bisection).  The baseline methods come with ROADMAP
-    Queue 1 item 8.
+    -> per-lane bisection).  The baselines take the knobs of their
+    functions: ``leaf``, ``chunk``, ``niter``, ``use_zhat`` and ``dtype``
+    for "lazy" and "full" (:mod:`repro_torch.core.baselines`), ``dtype``
+    for "sterf"; "eigh" is ``torch.linalg.eigvalsh`` of the dense matrix.
     """
     kind = "batch" if len(getattr(d, "shape", ())) == 2 else "full"
     req = SolveRequest(d=d, e=e, kind=kind, method=method,

@@ -77,23 +77,30 @@ def _pad_problem(d, e, leaf):
     return d_pad, e_pad, N, L
 
 
-def _leaf_solve(d_adj, e_pad, leaf, track_local=None):
-    """Batched leaf eigensolves: one batched dense ``torch.linalg.eigh``.
-
-    d_adj, e_pad: (B, N).  Keeps the first/last eigenvector rows, plus the
-    per-problem row at local index ``track_local`` ((B,) integer) when
-    given.  Returns (lam (B, nb, leaf), rows (B, nb, r, leaf)).
-    """
+def _leaf_eigh(d_adj, e_pad, leaf):
+    """Every leaf block's full eigendecomposition, one batched dense
+    ``torch.linalg.eigh``: d_adj, e_pad (B, N) -> (lam (B, nb, leaf),
+    Q (B, nb, leaf, leaf)), eigenvalues ascending."""
     B, N = d_adj.shape
     nb = N // leaf
-    db = d_adj.reshape(B, nb, leaf)
-    T = torch.diag_embed(db)
+    T = torch.diag_embed(d_adj.reshape(B, nb, leaf))
     if leaf > 1:
         eb = e_pad[:, :N].reshape(B, nb, leaf)[:, :, : leaf - 1]
         j = torch.arange(leaf - 1, device=d_adj.device)
         T[:, :, j, j + 1] = eb
         T[:, :, j + 1, j] = eb
-    lam, Q = torch.linalg.eigh(T)          # ascending
+    return torch.linalg.eigh(T)
+
+
+def _leaf_solve(d_adj, e_pad, leaf, track_local=None):
+    """Batched leaf eigensolves (:func:`_leaf_eigh`) keeping only the
+    first/last eigenvector rows, plus the per-problem row at local index
+    ``track_local`` ((B,) integer) when given.  d_adj, e_pad: (B, N).
+    Returns (lam (B, nb, leaf), rows (B, nb, r, leaf)).
+    """
+    B, N = d_adj.shape
+    nb = N // leaf
+    lam, Q = _leaf_eigh(d_adj, e_pad, leaf)
     selected = [Q[:, :, 0, :], Q[:, :, leaf - 1, :]]
     if track_local is not None:
         idx = track_local.long()[:, None, None, None].expand(B, nb, 1, leaf)
@@ -143,7 +150,7 @@ def _level_pairs(lam, rows, track, M):
 
 def _br_dc_padded_batch(d_pad, e_pad, track, *, leaf, chunk, niter, use_zhat,
                         return_boundary, tol_factor, stream_threshold,
-                        deflate_budget, resident_threshold):
+                        deflate_budget, resident_threshold, fused=True):
     """Batch-first padded D&C body.
 
     d_pad, e_pad: (B, N); track: (B,) per-problem tracked original row
@@ -182,7 +189,7 @@ def _br_dc_padded_batch(d_pad, e_pad, track, *, leaf, chunk, niter, use_zhat,
             root_mode=root, tol_factor=tol_factor,
             stream_threshold=stream_threshold,
             deflate_budget=deflate_budget,
-            resident_threshold=resident_threshold)
+            resident_threshold=resident_threshold, fused=fused)
         lam, rows = res.lam, res.rows
         kprimes.append(res.kprime)
 

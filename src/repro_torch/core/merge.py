@@ -326,21 +326,26 @@ def merge_level(lam_pairs, z_inner, R, rho, sgn, *,
     lam_pairs: (W, 2, M) child spectra; z_inner: (W, 2, M) = (bhi_L,
     blo_R); R: (W, r, 2M); rho, sgn: (W,).  Knobs as in
     ``repro.core.merge.merge_level``; None thresholds take the defaults
-    of the tensors' device type.  ``fused=False`` (the legacy two-pass
-    baseline) is not ported yet.
+    of the tensors' device type.
+
+    ``fused=False`` runs the legacy two-pass conquer: a streamed secular
+    solve (never dense, never resident), then the log-space weights and
+    the row update, one launch each for all W lanes on the card.  A level
+    whose R has more rows than the fused kernels take (``r >
+    FUSED_MAX_ROWS``, i.e. r = K in the full-vector and lazy baselines)
+    runs the same two passes whatever ``fused`` says, on either device, so
+    the CPU tests run the route the card runs.  (The JAX package sends
+    such levels through its fused or resident path; the results agree to
+    rounding.)
     """
-    if not fused:
-        raise NotImplementedError(
-            "fused=False (the two-pass baseline) needs the legacy zhat and "
-            "boundary-update kernels, which are still to port (ROADMAP "
-            "Queue 2 rows 5-6)")
     K = 2 * lam_pairs.shape[-1]
     dev = lam_pairs.device
     if stream_threshold is None:
         stream_threshold = default_stream_threshold(dev)
     if resident_threshold is None:
         resident_threshold = default_resident_threshold(dev)
-    dense = K <= stream_threshold
+    two_pass = not fused or R.shape[1] > _ops.FUSED_MAX_ROWS
+    dense = not two_pass and K <= stream_threshold
     dtype = lam_pairs.dtype
 
     d, z, Rp, kprime, rho_eff = _merge_head(lam_pairs, z_inner, R, rho, sgn,
@@ -348,7 +353,7 @@ def merge_level(lam_pairs, z_inner, R, rho, sgn, *,
                                             deflate_budget=deflate_budget)
 
     # ---- single-dispatch resident merge (small K, solve + post-pass) ---
-    if not root_mode and K <= resident_threshold:
+    if not two_pass and not root_mode and K <= resident_threshold:
         origin, tau, _, rows = _ops.secular_merge_resident_batched(
             d, z, Rp, rho_eff, kprime, niter=niter, use_zhat=use_zhat)
         lam = torch.gather(d, 1, origin.long()) + tau
@@ -365,9 +370,17 @@ def merge_level(lam_pairs, z_inner, R, rho, sgn, *,
         lam, _ = _sort_lanes(lam, None)
         return MergeResult(lam.to(dtype), torch.zeros_like(Rp), kprime,
                            rho_eff)
-    _, rows = _ops.secular_postpass_batched(
-        Rp, d, z, origin, tau, kprime, rho_eff, use_zhat=use_zhat,
-        chunk=chunk, dense=dense)
+    if two_pass:
+        # Legacy two-pass conquer: the delta structure is streamed twice.
+        w = (_ops.zhat_reconstruct_batched(d, z, origin, tau, kprime,
+                                           rho_eff, chunk=chunk)
+             if use_zhat else z)
+        rows = _ops.boundary_rows_update_batched(Rp, d, w, origin, tau,
+                                                 kprime, chunk=chunk)
+    else:
+        _, rows = _ops.secular_postpass_batched(
+            Rp, d, z, origin, tau, kprime, rho_eff, use_zhat=use_zhat,
+            chunk=chunk, dense=dense)
     lam, rows = _sort_lanes(lam, rows)
     return MergeResult(lam.to(dtype), rows, kprime, rho_eff)
 

@@ -167,10 +167,6 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
                 f"got {refine_tol}")
     if mesh not in ("auto", None, 1) or compress_halo:
         raise _not_ported("sharded solves (mesh, compress_halo)", "item 13")
-    if not fused:
-        raise NotImplementedError(
-            "fused=False (the two-pass baseline) needs the legacy zhat and "
-            "boundary-update kernels (ROADMAP Queue 2 rows 5-6)")
     dev = resolve_device(device)
     dtype_name = _dtype_name(torch.float64 if dtype is None else dtype)
     if niter is None:
@@ -292,7 +288,7 @@ class SolvePlan:
             return_boundary=key.return_boundary, tol_factor=key.tol_factor,
             stream_threshold=key.stream_threshold,
             deflate_budget=key.deflate_budget,
-            resident_threshold=key.resident_threshold)
+            resident_threshold=key.resident_threshold, fused=key.fused)
         _br.SOLVE_COUNTER.increment()
         # Chaos-harness hook: NaN-poisons configured eigenvalue rows before
         # the mixed stage (a poisoned mixed solve exercises recovery by

@@ -9,8 +9,10 @@ resolves the bucketed key the launch will use: a
 :class:`~repro_torch.core.plan.PlanKey` for the boundary-row tree
 (``method="br"``) or a :class:`~repro_torch.core.plan.RangePlanKey` for
 the Sturm-count path (``kind="range"``, ``kind="edges"``,
-``method="bisect"``).  Kinds and methods of later slices raise
-NotImplementedError naming the ROADMAP item that brings them.
+``method="bisect"``).  The baseline methods ("sterf", "lazy", "full",
+"eigh") and the n == 1 short circuits route to None and run directly, one
+problem at a time.  Kinds of later slices raise NotImplementedError
+naming the ROADMAP item that brings them.
 
 Request kinds:
 
@@ -40,11 +42,8 @@ KINDS = ("full", "batch", "range", "slq", "edges")
 
 METHODS = ("br", "sterf", "lazy", "full", "eigh", "bisect")
 
-# What brings the kinds and methods this port does not run yet.
-_BASELINES = "Queue 1 item 8 (sterf.py + baselines.py)"
+# What brings the kinds this port does not run yet.
 _LATER_KINDS = {"slq": "Queue 1 item 11 (spectral/)"}
-_LATER_METHODS = {"sterf": _BASELINES, "lazy": _BASELINES,
-                  "full": _BASELINES, "eigh": _BASELINES}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,12 +143,10 @@ def _normalize(req: SolveRequest):
     if req.method not in METHODS:
         raise ValueError(
             f"unknown method {req.method!r}; choose from {METHODS}")
-    for what, item in ((f"kind={req.kind!r}", _LATER_KINDS.get(req.kind)),
-                       (f"method={req.method!r}",
-                        _LATER_METHODS.get(req.method))):
-        if item:
-            raise NotImplementedError(
-                f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+    if req.kind in _LATER_KINDS:
+        raise NotImplementedError(
+            f"kind={req.kind!r} is not ported to repro_torch yet (ROADMAP "
+            f"{_LATER_KINDS[req.kind]})")
     if req.deadline_ms is not None:
         deadline = float(req.deadline_ms)
         if not (deadline > 0.0) or not np.isfinite(deadline):
@@ -261,7 +258,7 @@ def route_request(req: SolveRequest) -> RoutedRequest:
                              route=route, il=il, k=k, empty=empty,
                              single=single, scale=scale)
 
-    if n > 1:
+    if req.method == "br" and n > 1:
         return_boundary = req.return_boundary
         if req.kind == "full":
             # Single (possibly padded) leaf trees return their boundary
@@ -276,7 +273,7 @@ def route_request(req: SolveRequest) -> RoutedRequest:
             **{k: v for k, v in kw.items() if k != "dtype"})
         return RoutedRequest(request=req, d=d, e=e, batch=B, n=n,
                              route=route, single=single, scale=scale)
-    # n == 1 short circuit: direct, no plan.
+    # Baselines (and the n == 1 short circuits): direct, uncoalescable.
     _plan.resolve_device(req.device)
     return RoutedRequest(request=req, d=d, e=e, batch=B, n=n, route=None,
                          single=single, scale=scale)
@@ -479,16 +476,31 @@ def _finalize_lanes(routed: RoutedRequest, lam, blo=None, bhi=None, *,
 
 
 def _solve_direct_single(d, e, method: str, kw: dict, device):
-    """One problem through the non-plan path (the ladder's native
-    re-solve).  Only ``"br"`` is ported; the baselines come with
-    ROADMAP Queue 1 item 8."""
+    """One problem through the non-plan paths: the baselines, and "br"
+    for the ladder's native re-solve.  Returns (eigenvalues, blo, bhi)."""
+    from repro_torch.core import baselines as _bl
     from repro_torch.core.br_dc import eigvalsh_tridiagonal_br
+    from repro_torch.core.sterf import eigvalsh_tridiagonal_sterf
     if method == "br":
         res = eigvalsh_tridiagonal_br(d, e, device=device, **kw)
         return res.eigenvalues, res.blo, res.bhi
-    raise NotImplementedError(
-        f"method={method!r} is not ported to repro_torch yet "
-        f"(ROADMAP {_BASELINES})")
+    if method == "sterf":
+        return eigvalsh_tridiagonal_sterf(d, e, device=device, **kw), None, None
+    if method == "lazy":
+        return (_bl.eigvalsh_tridiagonal_lazy(d, e, device=device, **kw),
+                None, None)
+    if method == "full":
+        return (_bl.eigvalsh_tridiagonal_full_discard(d, e, device=device,
+                                                      **kw), None, None)
+    if method == "eigh":
+        # The dense symmetric matrix and one library eigensolve, as the
+        # JAX package does it.
+        from repro_torch.core.tridiag import dense_from_tridiag
+        A = dense_from_tridiag(*(x.cpu().numpy() if isinstance(
+            x, torch.Tensor) else np.asarray(x) for x in (d, e)))
+        return (torch.linalg.eigvalsh(torch.as_tensor(A, device=device)),
+                None, None)
+    raise ValueError(f"unknown method {method!r}; choose from {METHODS}")
 
 
 def _unwrap(single: bool, *arrays):
@@ -549,6 +561,22 @@ def execute_request(req: SolveRequest | RoutedRequest) -> SolveResult:
         lam, blo, bhi, diag = _finalize_lanes(routed, lam, blo, bhi,
                                               cert=cert,
                                               check_finite=check)
+    elif req.method != "br":
+        # Direct path: the baselines, one problem at a time (these methods
+        # exist to model per-problem quadratic state).
+        dev = _plan.resolve_device(req.device)
+        kw = {k: v for k, v in req.knobs.items() if k != "return_boundary"}
+        lam = torch.stack([
+            _solve_direct_single(routed.d[b], routed.e[b], req.method, kw,
+                                 dev)[0] for b in range(routed.batch)])
+        blo = bhi = diag = None
+        if req.certify or routed.scale != 1.0 or _faults.faults_enabled():
+            cert = None
+            if req.certify:
+                from repro_torch.core import bisect as _bis
+                cert = _bis.certify_spectrum(routed.d, routed.e, lam,
+                                             device=dev).certified
+            lam, blo, bhi, diag = _finalize_lanes(routed, lam, cert=cert)
     else:
         # n == 1 of a tree solve: the eigenvalue is d itself.
         dev = _plan.resolve_device(req.device)

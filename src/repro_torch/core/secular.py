@@ -285,8 +285,9 @@ def _postpass_tile(ic, d, z, d_org, tau, kprime, rho, use_zhat):
 
     The tile ``lam_diff[c, j] = (d_org_j - d_i) + tau_j`` is formed once
     and serves both the Gu-Eisenstat weight of each tile pole (DLAED3's
-    ratio-product form, a plain product over the roots) and the tile
-    poles' contribution to every root column of the row update.
+    ratio-product form, a plain product over the roots, accumulated in
+    float64) and the tile poles' contribution to every root column of the
+    row update.
 
     Returns (zhat_c (B, C), y (B, C, K)) with the *unnormalized* secular
     eigenvector entries y_j(i) = w_i / ((d_i - d_org_j) - tau_j).
@@ -312,12 +313,33 @@ def _postpass_tile(ic, d, z, d_org, tau, kprime, rho, use_zhat):
         pole_diff = d[:, None, :] - d_i[:, :, None]
         selfmask = idxK[None, None, :] == ic_safe[:, :, None]
         ok = active_j & ~selfmask
-        ratio = torch.where(ok, lam_diff / torch.where(ok, pole_diff, one),
-                            one)
+        # Every factor enters by magnitude and in float64 whatever the
+        # input type (the product of K float32 ratios can leave float32's
+        # range).  A magnitude below the type's smallest normal number
+        # enters as 1 and is counted (+1 in a numerator, -1 in a
+        # denominator), and the product is scaled by tiny**count once:
+        # the log-space form's floor (zhat_reconstruct_batched) with the
+        # tiny powers gathered, so a zero pole gap (two float64 poles 4e-9
+        # apart round to one float32 value) and the zero self term of the
+        # root on that pole cancel exactly.  A float64 result with no
+        # magnitude below tiny is unchanged bit for bit: |a| / |b| rounds
+        # as |a / b|, and the final product is taken in magnitude anyway.
+        acc = torch.float64
+        tiny = torch.finfo(d.dtype).tiny
+        a = lam_diff.abs().to(acc)
+        b = pole_diff.abs().to(acc)
+        fa, fb = ok & (a < tiny), ok & (b < tiny)
+        ratio = torch.where(
+            ok, torch.where(fa, 1.0, a) / torch.where(fb, 1.0, b), 1.0)
         prod = torch.prod(ratio, dim=-1)
-        self_term = (_take(d_org, ic_safe) - d_i) + _take(tau, ic_safe)
-        z2hat = (prod * self_term).abs() / rho[:, None]
-        zhat_c = torch.sign(z_i) * torch.sqrt(z2hat)
+        self_term = ((_take(d_org, ic_safe) - d_i)
+                     + _take(tau, ic_safe)).abs().to(acc)
+        fs = self_term < tiny
+        floored = fa.sum(-1) - fb.sum(-1) + fs
+        z2hat = prod * torch.where(fs, 1.0, self_term) / rho[:, None].to(acc)
+        z2hat = torch.where(floored == 0, z2hat,
+                            z2hat * torch.pow(tiny, floored.to(acc)))
+        zhat_c = torch.sign(z_i) * torch.sqrt(z2hat).to(d.dtype)
         zhat_c = torch.where(valid_i, zhat_c, z_i)
         w = torch.where(valid_i, zhat_c, zero)
     else:
@@ -391,6 +413,111 @@ def secular_postpass(R, d, z, origin, tau, kprime, rho, *,
         R[None], d[None], z[None], origin[None], tau[None], kp_t, rho_t,
         use_zhat=use_zhat, chunk=chunk, dense=dense)
     return zhat[0], rows[0]
+
+
+def zhat_reconstruct_batched(d, z, origin, tau, kprime, rho, *,
+                             chunk: int = 128):
+    """Gu-Eisenstat weights of the two-pass conquer (LAPACK DLAED3), in
+    log space: for every active pole i
+
+      zhat_i^2 = prod_j (lam_j - d_i) / [rho * prod_{j != i} (d_j - d_i)]
+
+    over the kprime active roots j, with lam_j - d_i = (d_org_j - d_i) +
+    tau_j.  Sums of logs cannot overflow; the differences are formed in
+    the input type, their logs and sums in float64 (float32's 24 bits
+    would lose a few percent of zhat in a sum of thousands of logs;
+    float64 inputs are unaffected).  Chunked over poles: O(B * chunk * K)
+    temporaries.
+
+    d, z, origin, tau: (B, K); kprime, rho: (B,).  Returns zhat (B, K);
+    inactive entries pass z through.
+    """
+    B, K = d.shape
+    dev = d.device
+    acc = torch.float64
+    zero = torch.zeros((), dtype=acc, device=dev)
+    tiny = torch.finfo(d.dtype).tiny
+    kp = kprime.to(dev, torch.int64)[:, None]
+    idxK = torch.arange(K, device=dev)
+    active = idxK[None, :] < kp                             # (B, K)
+    jmask = active[:, None, :]
+    d_org = torch.gather(d, -1, origin.long().clamp(max=K - 1))
+    C = min(chunk, K)
+    parts = []
+    for start in range(0, _pad_len(K, C), C):
+        ic_safe = torch.arange(start, start + C, device=dev).clamp(
+            max=K - 1)[None, :]                             # (1, C)
+        d_i = _take(d, ic_safe)[:, :, None]
+        lam_diff = (d_org[:, None, :] - d_i) + tau[:, None, :]
+        pole_diff = d[:, None, :] - d_i
+        selfmask = idxK[None, None, :] == ic_safe[:, :, None]
+        log_num = torch.where(jmask, torch.log(lam_diff.abs().clamp(
+            min=tiny).to(acc)), zero).sum(-1)
+        log_den = torch.where(jmask & ~selfmask, torch.log(
+            pole_diff.abs().clamp(min=tiny).to(acc)), zero).sum(-1)
+        parts.append(torch.exp(log_num - log_den) / rho[:, None].to(acc))
+    z2hat = torch.cat(parts, dim=1)[:, :K]
+    zhat = torch.sign(z) * torch.sqrt(z2hat.clamp(min=0.0)).to(d.dtype)
+    return torch.where(active, zhat, z).contiguous()
+
+
+def boundary_rows_update_batched(R, d, z, origin, tau, kprime, *,
+                                 chunk: int = 128):
+    """Selected-row update of the two-pass conquer, any number of rows:
+    R_parent[:, j] = R_child @ y_j for every active root j, with
+
+      y_j(i) = (z_i / ((d_i - d_org_j) - tau_j)) / ||.||
+
+    over the active poles i, chunked over roots (the K x K block Y is
+    never formed).  An active pole whose denominator is exactly zero
+    contributes z_i (the denominator becomes 1), as in the JAX package's
+    XLA path; its Pallas kernel drops that term instead.  Deflated
+    columns pass through.
+
+    R: (B, r, K) -- r = 2 or 3 for the boundary rows, r = K for the
+    full-vector and lazy baselines; d, z, origin, tau: (B, K); kprime:
+    (B,).  Returns rows (B, r, K).
+    """
+    B, r, K = R.shape
+    dev = d.device
+    zero = torch.zeros((), dtype=d.dtype, device=dev)
+    one = torch.ones((), dtype=d.dtype, device=dev)
+    kp = kprime.to(dev, torch.int64)[:, None]
+    active = torch.arange(K, device=dev)[None, :] < kp      # (B, K)
+    act_i = active[:, None, :]
+    d_org = torch.gather(d, -1, origin.long().clamp(max=K - 1))
+    C = min(chunk, K)
+    parts = []
+    for start in range(0, _pad_len(K, C), C):
+        jc_safe = torch.arange(start, start + C, device=dev).clamp(
+            max=K - 1)[None, :]
+        delta = ((d[:, None, :] - _take(d_org, jc_safe)[:, :, None])
+                 - _take(tau, jc_safe)[:, :, None])          # (B, C, K)
+        safe = torch.where(act_i & (delta != 0.0), delta, one)
+        y = torch.where(act_i, z[:, None, :] / safe, zero)
+        nrm = torch.sqrt(torch.sum(y * y, dim=-1))
+        nrm = torch.where(nrm > 0.0, nrm, one)
+        parts.append(torch.bmm(R, y.transpose(1, 2)) / nrm[:, None, :])
+    cols = torch.cat(parts, dim=2)[:, :, :K]
+    return torch.where(active[:, None, :], cols, R).contiguous()
+
+
+def zhat_reconstruct(d, z, origin, tau, kprime, rho, *, chunk: int = 128):
+    """Single-problem view of :func:`zhat_reconstruct_batched`: d, z,
+    origin, tau (K,); kprime, rho scalars."""
+    rho_t = torch.as_tensor(rho, dtype=d.dtype, device=d.device).reshape(1)
+    kp_t = torch.as_tensor(kprime, device=d.device).reshape(1)
+    return zhat_reconstruct_batched(d[None], z[None], origin[None],
+                                    tau[None], kp_t, rho_t, chunk=chunk)[0]
+
+
+def boundary_rows_update(R, d, z, origin, tau, kprime, *, chunk: int = 128):
+    """Single-problem view of :func:`boundary_rows_update_batched`: R
+    (r, K); d, z, origin, tau (K,); kprime scalar."""
+    kp_t = torch.as_tensor(kprime, device=d.device).reshape(1)
+    return boundary_rows_update_batched(R[None], d[None], z[None],
+                                        origin[None], tau[None], kp_t,
+                                        chunk=chunk)[0]
 
 
 def secular_merge_resident_batched(d, z, R, rho, kprime, *,

@@ -15,7 +15,8 @@
 //     zhat_i = sign(z_i) sqrt(|prod_j (lam_j - d_i) / (d_j - d_i)
 //              * (lam_i - d_i)| / rho)
 //     over all active roots j != i (DLAED3's ratio-product form, sign(0)
-//     = 0) and writes it;
+//     = 0; factors and product as secular::weight_factor and
+//     weight_z2) and writes it;
 //   pass B (root-major): one thread per root column j sums over all
 //     active poles i, y_ij = zhat_i / ((d_i - d_org_j) - tau_j), the r rows
 //     sum_i R[:, i] y_ij and ||y_.j||^2, then normalises its own column.
@@ -30,8 +31,7 @@
 // tiles of TILE and read at one address by the whole block (broadcast).
 // Sizes as in secular_roots.cu: 64-thread blocks keep a single K = 8192
 // problem on 128 blocks.
-#include <cuda_runtime.h>
-#include <cmath>
+#include "secular_common.cuh"
 
 namespace {
 
@@ -60,7 +60,8 @@ zhat_kernel(const T* __restrict__ d, const T* __restrict__ z,
   const int kp = kprime[b];
   const int is = i < K - 1 ? i : K - 1;
   const T d_i = d[off + is];
-  T prod = T(1);
+  double prod = 1.0;
+  int floored = 0;
   // Only the kp active roots enter the product.
   for (int start = 0; start < kp; start += TILE) {
     const int n = kp - start < TILE ? kp - start : TILE;
@@ -77,8 +78,8 @@ zhat_kernel(const T* __restrict__ d, const T* __restrict__ z,
     if (use_zhat) {
       for (int t = 0; t < n; ++t) {
         if (start + t == is) continue;
-        const T lam_diff = (s_dorg[t] - d_i) + s_tau[t];
-        prod *= lam_diff / (s_d[t] - d_i);
+        prod *= secular::weight_factor<T>((s_dorg[t] - d_i) + s_tau[t],
+                                          s_d[t] - d_i, floored);
       }
     }
   }
@@ -88,8 +89,10 @@ zhat_kernel(const T* __restrict__ d, const T* __restrict__ z,
   if (use_zhat && i < kp) {
     int o = origin[off + i];
     o = o < K - 1 ? o : K - 1;
-    const T self_term = (d[off + o] - d_i) + tau[off + i];  // lam_i - d_i
-    out = sign_of(z_i) * sqrt(fabs(prod * self_term) / rho[b]);
+    // lam_i - d_i
+    const double z2 = secular::weight_z2<T>(
+        prod, (d[off + o] - d_i) + tau[off + i], (double)rho[b], floored);
+    out = sign_of(z_i) * (T)sqrt(z2);
   }
   zhat[off + i] = out;
 }

@@ -106,14 +106,20 @@ resident_merge_kernel(const T* __restrict__ d, const T* __restrict__ z,
     const T z_i = s_z[i];
     T out = z_i;
     if (use_zhat && i < kp) {
+      // Factors by magnitude, the product in double, magnitudes below
+      // the smallest normal number counted: see secular::weight_factor.
       const T d_i = s_d[i];
-      T prod = T(1);
+      double prod = 1.0;
+      int floored = 0;
       for (int jj = 0; jj < kp; ++jj) {
         if (jj == i) continue;
-        prod *= ((s_dorg[jj] - d_i) + s_tau[jj]) / (s_d[jj] - d_i);
+        prod *= secular::weight_factor<T>((s_dorg[jj] - d_i) + s_tau[jj],
+                                          s_d[jj] - d_i, floored);
       }
-      const T self_term = (s_dorg[i] - d_i) + s_tau[i];   // lam_i - d_i
-      out = sign_of(z_i) * sqrt(fabs(prod * self_term) / rh);
+      // lam_i - d_i
+      const double z2 = secular::weight_z2<T>(
+          prod, (s_dorg[i] - d_i) + s_tau[i], (double)rh, floored);
+      out = sign_of(z_i) * (T)sqrt(z2);
     }
     zhat[off + i] = out;
     s_w[i] = out;

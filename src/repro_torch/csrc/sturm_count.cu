@@ -53,49 +53,12 @@
 // B = 64, n = 4096 is 8192 blocks, about 62 per SM.  A tile of
 // ROW_TILE = 256 rows is 4 KiB of shared memory in float64 (d and e2),
 // so the shared memory never limits the 32 resident blocks of an SM.
-#include <cuda_runtime.h>
+#include "rounded.cuh"
 
 namespace {
 
 constexpr int SHIFTS_PER_BLOCK = 64;
 constexpr int ROW_TILE = 256;
-
-template <typename T>
-struct Rn;
-
-template <>
-struct Rn<double> {
-  static __device__ __forceinline__ double add(double a, double b) {
-    return __dadd_rn(a, b);
-  }
-  static __device__ __forceinline__ double sub(double a, double b) {
-    return __dsub_rn(a, b);
-  }
-  static __device__ __forceinline__ double mul(double a, double b) {
-    return __dmul_rn(a, b);
-  }
-  static __device__ __forceinline__ double div(double a, double b) {
-    return __ddiv_rn(a, b);
-  }
-  static __device__ __forceinline__ double abs(double a) { return fabs(a); }
-};
-
-template <>
-struct Rn<float> {
-  static __device__ __forceinline__ float add(float a, float b) {
-    return __fadd_rn(a, b);
-  }
-  static __device__ __forceinline__ float sub(float a, float b) {
-    return __fsub_rn(a, b);
-  }
-  static __device__ __forceinline__ float mul(float a, float b) {
-    return __fmul_rn(a, b);
-  }
-  static __device__ __forceinline__ float div(float a, float b) {
-    return __fdiv_rn(a, b);
-  }
-  static __device__ __forceinline__ float abs(float a) { return fabsf(a); }
-};
 
 template <typename T>
 __device__ __forceinline__ T floor_pivot(T q, T pivmin) {

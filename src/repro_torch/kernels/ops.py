@@ -4,7 +4,8 @@ Dispatch goes by the device of the tensors, never by a process-wide
 switch:
 
   * a CPU tensor runs the plain torch version (``repro_torch.core.secular``
-    for the merge kernels, ``repro_torch.core.bisect`` for the Sturm counts);
+    for the merge kernels, ``repro_torch.core.bisect`` for the Sturm counts,
+    ``repro_torch.core.sterf`` for the QL iteration);
     ``dense=`` picks its dense (one (K, K) tile) or chunked form, as in the
     JAX package's size-adaptive level dispatch;
   * a CUDA tensor launches the hand-written kernel, or raises.  It never
@@ -20,12 +21,22 @@ import torch
 
 from repro_torch.core import bisect as _bis
 from repro_torch.core import secular as _sec
+from repro_torch.core import sterf as _sterf
 from repro_torch.core.secular import DEFAULT_NITER, DEFAULT_NITER_F32
+from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
 from repro_torch.kernels.fused_update import secular_postpass_cuda
 from repro_torch.kernels.resident_merge import resident_merge_cuda
 from repro_torch.kernels.secular_roots import secular_solve_cuda
+from repro_torch.kernels.sterf import sterf_cuda
 from repro_torch.kernels.sturm_count import (sturm_count_cuda,
                                              sturm_count_newton_cuda)
+from repro_torch.kernels.zhat import zhat_reconstruct_cuda
+
+# Most selected rows the fused post-pass and the resident merge take (the
+# boundary rows of the tree: 2, or 3 with a tracked row).  A level with
+# more rows -- r = K in the full-vector and lazy baselines -- runs the
+# two-pass conquer, whose row update takes any r.
+FUSED_MAX_ROWS = 4
 
 
 def resolve_niter(niter: int | None, dtype) -> int:
@@ -104,6 +115,39 @@ def sturm_count_batched(d, e2, shifts, pivmin):
     return _bis.sturm_count_plain(d, e2, shifts, pivmin.reshape(-1, 1))
 
 
+def zhat_reconstruct_batched(d, z, origin, tau, kprime, rho, *,
+                             chunk: int = 256):
+    """Problem-batched log-space weights of the two-pass conquer: d, z,
+    origin, tau (B, K); kprime, rho (B,).  Returns zhat (B, K)."""
+    if _on_card(d):
+        return zhat_reconstruct_cuda(d.contiguous(), z.contiguous(),
+                                     _int32(origin), tau.contiguous(),
+                                     _int32(kprime), rho.contiguous())
+    return _sec.zhat_reconstruct_batched(d, z, origin, tau, kprime, rho,
+                                         chunk=chunk)
+
+
+def boundary_rows_update_batched(R, d, z, origin, tau, kprime, *,
+                                 chunk: int = 256):
+    """Problem-batched row update of the two-pass conquer, any row count:
+    R (B, r, K); d, z (the weights), origin, tau (B, K); kprime (B,).
+    Returns rows (B, r, K)."""
+    if _on_card(d):
+        return boundary_rows_update_cuda(R.contiguous(), d.contiguous(),
+                                         z.contiguous(), _int32(origin),
+                                         tau.contiguous(), _int32(kprime))
+    return _sec.boundary_rows_update_batched(R, d, z, origin, tau, kprime,
+                                             chunk=chunk)
+
+
+def sterf_batched(d, e):
+    """Implicit-shift QL eigenvalues of B problems: d (B, n), e (B, n-1).
+    Returns (eigenvalues (B, n) ascending, rotations (B,) int64)."""
+    if _on_card(d):
+        return sterf_cuda(d.contiguous(), e.contiguous())
+    return _sterf.sterf_plain(d, e)
+
+
 def count_and_newton_batched(d, e2, x, pivmin):
     """Sturm counts plus the pivot recurrence's derivative sum at every
     shift (shapes as :func:`sturm_count_batched`).  Returns (count (B, S)
@@ -147,3 +191,18 @@ def secular_merge_resident(d, z, R, rho, kprime, *,
         d[None], z[None], R[None], _as_scalar(rho, d),
         _as_scalar(kprime, d, torch.int32), niter=niter, use_zhat=use_zhat)
     return tuple(o[0] for o in outs)
+
+
+def zhat_reconstruct(d, z, origin, tau, kprime, rho, *, chunk: int = 256):
+    """Single-problem view: d, z, origin, tau (K,); kprime, rho scalars."""
+    return zhat_reconstruct_batched(
+        d[None], z[None], origin[None], tau[None],
+        _as_scalar(kprime, d, torch.int32), _as_scalar(rho, d),
+        chunk=chunk)[0]
+
+
+def boundary_rows_update(R, d, z, origin, tau, kprime, *, chunk: int = 256):
+    """Single-problem view: R (r, K); d, z, origin, tau (K,)."""
+    return boundary_rows_update_batched(
+        R[None], d[None], z[None], origin[None], tau[None],
+        _as_scalar(kprime, d, torch.int32), chunk=chunk)[0]

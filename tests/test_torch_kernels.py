@@ -10,7 +10,10 @@
     --noconftest``: the machine with the card has no JAX), each
     kernel against its plain version at the tolerances of
     tests/test_kernels.py, f32 scaled by eps; the Sturm-count kernels
-    bit for bit (counts and derivative sums).
+    bit for bit (counts and derivative sums); the QL kernel at
+    64 eps * max(1, ||T||_inf), the conformance bar (hypot differs
+    between math libraries by an ulp, which moves QL's trajectory by
+    about the algorithm's own error).
 """
 
 import os
@@ -24,10 +27,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import eigvalsh_tridiagonal, make_family  # noqa: E402
 from repro_torch.core import secular as tsec  # noqa: E402
+from repro_torch.core import sterf as tsterf  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels.boundary_update import (  # noqa: E402
+    boundary_rows_update_cuda)
 from repro_torch.kernels.fused_update import secular_postpass_cuda  # noqa: E402
 from repro_torch.kernels.resident_merge import resident_merge_cuda  # noqa: E402
 from repro_torch.kernels.secular_roots import secular_solve_cuda  # noqa: E402
+from repro_torch.kernels.sterf import sterf_cuda  # noqa: E402
+from repro_torch.kernels.zhat import zhat_reconstruct_cuda  # noqa: E402
 from repro_torch.kernels.sturm_count import (  # noqa: E402
     chain_probe_cuda, sturm_count_cuda, sturm_count_newton_cuda)
 from repro_torch.core import bisect as tbis  # noqa: E402
@@ -41,7 +49,9 @@ def test_import_loads_neither_jax_nor_repro_and_needs_no_nvcc():
         "import repro_torch, repro_torch.core, repro_torch.kernels\n"
         "import repro_torch.kernels.ops, repro_torch.kernels.ref\n"
         "import repro_torch.core.bisect, repro_torch.runtime.faults\n"
-        "import repro_torch.kernels.sturm_count\n"
+        "import repro_torch.kernels.sturm_count, repro_torch.kernels.zhat\n"
+        "import repro_torch.kernels.boundary_update\n"
+        "import repro_torch.kernels.sterf, repro_torch.core.baselines\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -257,3 +267,164 @@ def test_chain_probe_walks_the_count_kernels_recurrence(cuda_device, n):
         c, cycles = chain_probe_cuda(d[0], e2[0].contiguous(),
                                      float(x[0, j]), float(piv[0, 0]))
         assert int(c) == int(cnt[0, j]) and int(cycles) > 0
+
+
+def test_cpu_tensors_take_the_plain_two_pass_and_ql_versions():
+    d, z, rho, kp = _problem(2, 40, 33, seed=6)
+    R = torch.randn(2, 40, 40, dtype=torch.float64)
+    o, t = ops.secular_solve_batched(d, z * z, rho, kp)
+    before = (zhat_reconstruct_cuda.launches,
+              boundary_rows_update_cuda.launches, sterf_cuda.launches)
+    w = ops.zhat_reconstruct_batched(d, z, o, t, kp, rho)
+    assert torch.equal(w, tsec.zhat_reconstruct_batched(d, z, o, t, kp, rho))
+    assert torch.equal(
+        ops.boundary_rows_update_batched(R, d, w, o, t, kp),
+        tsec.boundary_rows_update_batched(R, d, w, o, t, kp))
+    dd, ee = make_family("uniform", 30, seed=6)
+    lam, steps = ops.sterf_batched(torch.tensor(dd)[None],
+                                   torch.tensor(ee)[None])
+    lam2, steps2 = tsterf.sterf_plain(torch.tensor(dd)[None],
+                                      torch.tensor(ee)[None])
+    assert torch.equal(lam, lam2) and torch.equal(steps, steps2)
+    for launch in (lambda: zhat_reconstruct_cuda(d, z, o, t, kp, rho),
+                   lambda: boundary_rows_update_cuda(R, d, w, o, t, kp),
+                   lambda: sterf_cuda(torch.tensor(dd)[None],
+                                      torch.tensor(ee)[None])):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch()
+    assert before == (zhat_reconstruct_cuda.launches,
+                      boundary_rows_update_cuda.launches,
+                      sterf_cuda.launches)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,K,kprime", [(3, 130, 101), (2, 1030, 700),
+                                        (1, 16, 1), (2, 257, 256)])
+@pytest.mark.parametrize("r", [1, 3, 4, 5, "K"])
+def test_two_pass_kernels_match_plain_on_card(cuda_device, dtype, B, K,
+                                              kprime, r):
+    """zhat and the row update against their plain versions, with an exact
+    zero denominator planted in root column 0 (the plain version's rule:
+    the pole contributes its weight)."""
+    r = K if r == "K" else r
+    d, z, rho, kp = _problem(B, K, kprime, seed=K + r, dtype=dtype,
+                             device=cuda_device)
+    R = torch.randn(B, r, K, dtype=dtype, device=cuda_device)
+    niter = ops.resolve_niter(None, dtype)
+    o, t = tsec.secular_solve_batched(d, z * z, rho, kp, niter=niter)
+    o[:, 0], t[:, 0] = 0, 0.0             # delta_00 == 0 exactly
+    _, atol, rtol = _tols(dtype)
+    w = zhat_reconstruct_cuda(d, z, o, t, kp, rho)
+    torch.testing.assert_close(
+        w, tsec.zhat_reconstruct_batched(d, z, o, t, kp, rho),
+        atol=atol, rtol=rtol)
+    rows = boundary_rows_update_cuda(R, d, w, o, t, kp)
+    # Column sums of r = K rows run over K terms: the tolerance scales
+    # with K.
+    scale = max(1.0, K / 64) if r > 4 else 1.0
+    torch.testing.assert_close(
+        rows, tsec.boundary_rows_update_batched(R, d, w, o, t, kp),
+        atol=atol * scale, rtol=rtol * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [2, 70])
+def test_two_pass_batched_equals_looped_bitwise(cuda_device, r):
+    d, z, rho, kp = _problem(4, 300, 250, seed=r, device=cuda_device)
+    R = torch.randn(4, r, 300, dtype=d.dtype, device=cuda_device)
+    o, t = secular_solve_cuda(d, z * z, rho, kp, niter=16)
+    w = zhat_reconstruct_cuda(d, z, o, t, kp, rho)
+    rows = boundary_rows_update_cuda(R, d, w, o, t, kp)
+    for b in range(4):
+        s = slice(b, b + 1)
+        wb = zhat_reconstruct_cuda(d[s], z[s], o[s], t[s], kp[s], rho[s])
+        rb = boundary_rows_update_cuda(R[s], d[s], w[s], o[s], t[s], kp[s])
+        assert torch.equal(wb[0], w[b]) and torch.equal(rb[0], rows[b])
+
+
+@pytest.mark.gpu
+def test_f32_weights_stay_finite_where_poles_coincide_on_card(cuda_device):
+    """Lanes 14 and 21 of the seed-2050 problem hold two poles that are
+    one float32 value: the resident and fused kernels' weights stay
+    finite and match their plain versions (ROADMAP Queue 3 item 2)."""
+    rng = np.random.default_rng(2050)
+    d = np.sort(rng.standard_normal((64, 2048)), axis=1)[[14, 21]]
+    d[:, 1536:] += 10.0
+    z = rng.standard_normal((64, 2048))[[14, 21]]
+    z[:, 1536:] = 0.0
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    t = lambda a: torch.tensor(a, dtype=torch.float32,  # noqa: E731
+                               device=cuda_device)
+    d, z = t(d), t(z)
+    rho = torch.full((2,), 0.7, dtype=torch.float32, device=cuda_device)
+    kp = torch.full((2,), 1536, dtype=torch.int32, device=cuda_device)
+    R = torch.randn(2, 2, 2048, dtype=torch.float32, device=cuda_device)
+    _, atol, rtol = _tols(torch.float32)
+    res = resident_merge_cuda(d, z, R, rho, kp, niter=10)
+    o, tau = res[0], res[1]
+    zh, rows = secular_postpass_cuda(R, d, z, o, tau, kp, rho)
+    zp, rp = tsec.secular_postpass_batched(R, d, z, o, tau, kp, rho)
+    for got in (res[2], res[3], zh, rows):
+        assert bool(torch.isfinite(got).all())
+    for a, b in ((res[2], zp), (zh, zp), (res[3], rp), (rows, rp)):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_weights_where_poles_coincide_far_from_the_next_root_on_card(
+        cuda_device, dtype):
+    """Two poles of one value with the next root 6.87 away (the CPU case
+    of tests/test_torch_baselines.py): the resident and fused kernels'
+    weights and rows are finite and match their plain versions."""
+    d = np.array([[-40.0, -20.0, 0.0, 0.0, 30.0, 60.0, 90.0, 120.0]])
+    z = np.random.default_rng(5).standard_normal((1, 8))
+    d = torch.tensor(d, dtype=dtype, device=cuda_device)
+    z = torch.tensor(z / np.linalg.norm(z), dtype=dtype, device=cuda_device)
+    rho = torch.full((1,), 100.0, dtype=dtype, device=cuda_device)
+    kp = torch.full((1,), 8, dtype=torch.int32, device=cuda_device)
+    R = torch.eye(8, dtype=dtype, device=cuda_device)[None, :2]
+    _, atol, rtol = _tols(dtype)
+    res = resident_merge_cuda(d, z, R, rho, kp, niter=16)
+    o, tau = res[0], res[1]
+    zh, rows = secular_postpass_cuda(R, d, z, o, tau, kp, rho)
+    zp, rp = tsec.secular_postpass_batched(R, d, z, o, tau, kp, rho)
+    for got in (res[2], res[3], zh, rows):
+        assert bool(torch.isfinite(got).all())
+    for a, b in ((res[2], zp), (zh, zp), (res[3], rp), (rows, rp)):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+
+
+def _sterf_bar(d, e, dtype):
+    T = np.abs(d).max() + 2 * (np.abs(e).max() if len(e) else 0.0)
+    return 64 * float(torch.finfo(dtype).eps) * max(1.0, T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("family,n", [("uniform", 2), ("uniform", 100),
+                                      ("toeplitz", 64), ("clustered", 256),
+                                      ("glued_wilkinson", 200),
+                                      ("wilkinson", 21)])
+def test_sterf_kernel_matches_plain_on_card(cuda_device, dtype, family, n):
+    d, e = make_family(family, n, seed=n)
+    dt = torch.tensor(d, dtype=dtype)[None]
+    et = torch.tensor(e, dtype=dtype)[None]
+    lam, steps = sterf_cuda(dt.to(cuda_device), et.to(cuda_device))
+    lam2, steps2 = tsterf.sterf_plain(dt, et)
+    np.testing.assert_allclose(lam.cpu().numpy(), lam2.numpy(), rtol=0,
+                               atol=_sterf_bar(d, e, dtype))
+    assert int(steps[0]) > 0 and int(steps2[0]) > 0
+
+
+@pytest.mark.gpu
+def test_sterf_batched_equals_looped_bitwise(cuda_device):
+    D = np.stack([make_family("normal", 120, seed=s)[0] for s in range(5)])
+    E = np.stack([make_family("normal", 120, seed=s)[1] for s in range(5)])
+    d = torch.tensor(D, device=cuda_device)
+    e = torch.tensor(E, device=cuda_device)
+    lam, steps = sterf_cuda(d, e)
+    for b in range(5):
+        lb, sb = sterf_cuda(d[b:b + 1], e[b:b + 1])
+        assert torch.equal(lb[0], lam[b]) and int(sb[0]) == int(steps[b])

@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import secular as jsec  # noqa: E402
@@ -23,6 +24,16 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
 SHAPES = [(32, 17), (64, 64), (130, 101)]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _release_compiled_executables():
+    # The JAX reference compiles one executable per shape here; XLA:CPU
+    # keeps each one's memory mappings for the life of the process, and
+    # the vm.max_map_count budget is shared with the worker's later test
+    # modules (see tests/test_torch_bisect.py).
+    yield
+    jax.clear_caches()
 
 
 def _problem(K, kprime, seed=0):
