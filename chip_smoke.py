@@ -19,6 +19,10 @@ per source, in parallel), then:
      loop on the CPU), timing both, and the row update beside
      torch.matmul of a pre-formed Y (the product only); times one shift's
      Sturm chain on one thread (the latency bound of a bisection trip);
+     prints the root solve's and the resident merge's launch design (team
+     size, cluster size at every resident level, registers and spills)
+     and times their library yardstick, torch.linalg.eigvalsh of the
+     pre-formed diag(d) + rho z z^T, at the kernel table's shapes;
   3. drives the main path -- ``eigvalsh_tridiagonal`` at n = 16384
      (uniform) and ``eigvalsh_tridiagonal_batch`` at B = 64, n = 4096 for
      every family -- with the kernels' launch counts zeroed just before and
@@ -268,6 +272,40 @@ def _bound_ms(flops, nbytes, dtype):
                                        else "bytes")
 
 
+def _ptxas(log):
+    """{kernel function: (registers, spill store bytes, spill load bytes)}
+    from an ``nvcc -Xptxas -v`` log, keyed by the demangled-enough name
+    (the kernel's name and its T: ``...kernelIdE`` is double)."""
+    import re
+    out = {}
+    name = None
+    spill = (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name] = (int(m.group(1)), *spill)
+            name = None
+    return out
+
+
+def _regs(log, kernel, dtype_code):
+    """(registers, spill stores, spill loads) of ``kernel``<T> (T = 'd' or
+    'f') in a ptxas log."""
+    for fn, v in _ptxas(log).items():
+        if f"{kernel}I{dtype_code}E" in fn:
+            return v
+    raise AssertionError(f"no ptxas entry for {kernel}<{dtype_code}>")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -295,6 +333,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
     from repro_torch.kernels.fused_update import secular_postpass_cuda
+    from repro_torch.kernels import resident_merge as rmod
     from repro_torch.kernels.resident_merge import resident_merge_cuda
     from repro_torch.kernels.secular_roots import secular_solve_cuda
     from repro_torch.kernels.sterf import sterf_cuda
@@ -356,6 +395,42 @@ def main() -> int:
             (diff <= atol + rtol * b.abs()).all())
 
     record = {}
+
+    # The redesigned merge kernels' launch design: team size T, cluster
+    # size C and CTA size at each resident level of the n = 16384 solve
+    # (r = 2), of the B = 64 x 4096 batch and at the kernel table's shape
+    # (B = 64, r = 3, K = 2048), with cudaOccupancyMaxActiveClusters; and
+    # registers and spills from ptxas.
+    sms = rmod.sm_count(0)
+    design = {}
+    for name, kern in (("secular_roots", "secular_roots_kernel"),
+                       ("resident_merge", "resident_merge_kernel")):
+        log = (_build.build_dir() / f"{name}.log").read_text()
+        design[name] = {tag: _regs(log, kern, code)
+                        for tag, code in (("float64", "d"), ("float32", "f"))}
+    regs_txt = {name: "; ".join(f"{tag} {v[0]} registers, spill stores "
+                                f"{v[1]} B, loads {v[2]} B"
+                                for tag, v in d_.items())
+                for name, d_ in design.items()}
+    print(f"[2 design] secular_roots: team T={rmod.TEAM} lanes per root "
+          f"(secular_common.cuh, shared with the resident merge), no "
+          f"cluster (C=1); {regs_txt['secular_roots']}")
+    sizes = (64, 128, 256, 512, 1024, 2048)
+    for label, r, levels in (
+            ("n=16384 solve", 2, [(K, 16384 // K) for K in sizes]),
+            ("B=64 x 4096 batch", 2, [(K, 64 * 4096 // K) for K in sizes]),
+            ("table shape", 3, [(2048, 64)])):
+        parts = []
+        for K, lanes in levels:
+            shp = rmod.launch_shape(lanes, K, r, torch.float64, sms)
+            mac = rmod.max_active_clusters(0, torch.float64, r, K, shp)
+            parts.append(f"K={K} x{lanes} lanes: C={shp.cluster}, "
+                         f"{shp.threads} threads, {shp.smem} B shared, "
+                         f"{mac} clusters at once")
+        print(f"[2 design] resident_merge {label} (r={r}, f64; team "
+              f"T={rmod.TEAM}, {sms} SMs): " + "; ".join(parts))
+    design["resident_shape"] = (shp, mac)      # the table shape's, last
+    print(f"[2 design] resident_merge: {regs_txt['resident_merge']}")
 
     def report(name, dtype, shape, err, ok, k_ms, p_ms, extra=""):
         tag = str(dtype).replace("torch.", "")
@@ -496,6 +571,32 @@ def main() -> int:
                     library_ms=lib_ms, B=B, K=K, kp=kp, r=r,
                     ops=_boundary_ops(kps, r),
                     nbytes=((2 * r + 3) * 8 + 4) * B * K + 4 * B)
+
+    # Library yardstick of kernel-table rows 1-2: torch.linalg.eigvalsh of
+    # the pre-formed dense diag(d) + rho z z^T (formed before the clock),
+    # on the inputs of the two table shapes above.  It computes the same
+    # eigenvalues; for the resident merge the roots only (no zhat, no rows).
+    for name, (B, K, kp, seed), note in (
+            ("secular_roots", (1, 16384, 16384, 32768), ""),
+            ("resident_merge", (64, 2048, 1536, 2051),
+             " (roots only: no zhat, no rows)")):
+        d, z, rho, kpr = problem(B, K, kp, seed=seed, dtype=torch.float64)
+        A = (torch.diag_embed(d)
+             + rho[:, None, None] * z[:, :, None] * z[:, None, :])
+        lib_ms = _cuda_ms(torch, lambda: torch.linalg.eigvalsh(A), reps=3)
+        lam_lib = torch.linalg.eigvalsh(A)
+        del A
+        o, t = secular_solve_cuda(d, z * z, rho, kpr, niter=16)
+        lam_k = torch.sort(sec.secular_eigenvalues(d, o, t), dim=1).values
+        gap = float((lam_k - lam_lib).abs().max())
+        record[name].update(library_ms=lib_ms,
+                            library="torch.linalg.eigvalsh of the pre-formed "
+                                    "diag(d) + rho z z^T" + note)
+        print(f"[2 library] {name} (B={B}, K={K}, kprime={kp}, float64): "
+              f"torch.linalg.eigvalsh of the pre-formed diag(d) + rho z z^T"
+              f"{note} {lib_ms:.3f} ms (median of 3) against the kernel's "
+              f"{record[name]['ms']:.3f} ms; max |eigenvalue difference| "
+              f"{gap:.3e} ({smi})")
 
     # QL kernel vs its plain loop on the CPU at n = 256, f64 and f32, held
     # at sterf's bar (64 eps ||T||_inf at this n): hypot differs between
@@ -1062,7 +1163,16 @@ def main() -> int:
                     "replaces": tpu, "launches": int(count),
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": bound,
-                    "bound_by": by, "library_ms": None})
+                    "bound_by": by, "library_ms": rec.get("library_ms")})
+        if name in design:
+            regs, st, ld = design[name]["float64"]
+            out[-1].update(library=rec["library"], team=rmod.TEAM,
+                           registers_f64=regs, spill_bytes_f64=st + ld,
+                           achieved_ops_per_s=rec["flops"] / (rec["ms"] * 1e-3))
+        if name == "resident_merge":
+            shp, mac = design["resident_shape"]
+            out[-1].update(cluster=shp.cluster, cta_threads=shp.threads,
+                           clusters_at_once=mac)
     st = record[("sturm", 64)]
     bounds = {}
     for key, r in (("certify", st), ("trip", trip)):

@@ -1,0 +1,243 @@
+#!/usr/bin/env python3
+"""Time the main path's two merge kernels -- the secular root solve
+(``csrc/secular_roots.cu``) and the resident merge
+(``csrc/resident_merge.cu``) -- on one CUDA card, at the shapes of the
+kernel table in PERF.md and at every level of an n = 16384 solve that
+each kernel serves, with the real lane counts.
+
+    python3 scripts/time_merge_kernels.py [--src DIR] [--label NAME]
+                                          [--sweep-clusters]
+
+``--src`` imports ``repro_torch`` from another checkout's ``src`` (for
+instance an unpacked parent commit), so two versions of the kernels can
+be timed in turns inside one call on one card; each builds its own
+kernels under its own checkout.  Inputs are made from fixed seeds with
+numpy: sorted N(0, 1) poles, unit-norm weights, rho = 0.7, kprime as
+given (the level shapes use kprime = K, no deflation: the most work a
+level can take).  Times are CUDA events, median of 5 after a warm-up.
+Every line printed is one JSON object; the bound is the larger of the
+operations over 34 TFLOP/s (FP64, a division or reciprocal counting as
+one) and the bytes over 3.35 TB/s, as in chip_smoke.py.  For the root
+solve the FP64 instruction rate is estimated too: the FP64-pipe
+instructions of one term of the g/g' sweep, read from the kernel's SASS
+(cuobjdump), times the terms it sweeps, over the time; its share is
+against 64 FP64 lanes per SM per clock at the card's maximum SM clock.
+(The resident merge has other loops with a reciprocal per term -- the
+columns -- so the same reading would not isolate its sweep; it gets
+none.)  ``--sweep-clusters`` times the resident shapes once more at every
+cluster size C the kernel takes (a power of two up to 16 and K / 32),
+with one CTA per team of a C-th of the lane, in place of the size that
+``launch_shape`` picks, and says whether the results equal the picked
+launch's bit for bit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+PEAK_FP64 = 34e12
+PEAK_BYTES = 3.35e12
+
+# (B, K, kprime) of the root solve: the table's shape, then the levels
+# above the resident threshold of an n = 16384 solve (4, 2 and 1 lanes;
+# the top merge runs the root solve alone).
+ROOTS = [(1, 16384, 16384), (4, 4096, 4096), (2, 8192, 8192)]
+# (B, r, K, kprime) of the resident merge: the table's shape, the
+# resident levels of an n = 16384 solve (r = 2, the boundary rows), and
+# the largest level of the B = 64 x 4096 batch (128 lanes).
+RESIDENT = [(64, 3, 2048, 1536), (256, 2, 64, 64), (128, 2, 128, 128),
+            (64, 2, 256, 256), (32, 2, 512, 512), (16, 2, 1024, 1024),
+            (8, 2, 2048, 2048), (128, 2, 2048, 2048)]
+
+
+def _secular_ops(B, kp, niter):
+    """Operations per (root, pole) pair of the root solve, as chip_smoke's
+    _secular_ops: 18 + 6 per iteration."""
+    return float(B) * kp * kp * (18 + 6 * niter)
+
+
+def _postpass_ops(B, kp, r):
+    return float(B) * kp * kp * (10 + 2 * r)
+
+
+def _fp64_per_term(lib, kernel):
+    """FP64-pipe instructions (DADD, DMUL, DFMA, DSETP) of one term of the
+    g/g' sweep in ``kernel``<double>, read from the SASS of ``lib``
+    (cuobjdump): every term of a sweep forms one reciprocal estimate
+    (MUFU.RCP64H), so the code between consecutive estimates is one term,
+    and the most common count among those stretches is the unrolled
+    sweep's.  None when cuobjdump is missing."""
+    import collections
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        if f"{kernel}IdE" not in fn.split("\n", 1)[0]:
+            continue
+        counts, cur = [], None
+        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                             r"([A-Z][A-Z0-9_.]*)", fn):
+            if op.startswith("MUFU.RCP64H"):
+                if cur is not None:
+                    counts.append(cur)
+                cur = 0
+            elif cur is not None and op.split(".")[0] in (
+                    "DADD", "DMUL", "DFMA", "DSETP"):
+                cur += 1
+        return (collections.Counter(counts).most_common(1)[0][0]
+                if counts else None)
+    return None
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
+    ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--sweep-clusters", action="store_true")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("time_merge_kernels: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.kernels import resident_merge as rmod
+    from repro_torch.kernels.resident_merge import resident_merge_cuda
+    from repro_torch.kernels.secular_roots import secular_solve_cuda
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+    def problem(B, K, kp, seed):
+        rng = np.random.default_rng(seed)
+        d = np.sort(rng.standard_normal((B, K)), axis=1)
+        d[:, kp:] += 10.0
+        z = rng.standard_normal((B, K))
+        z[:, kp:] = 0.0
+        z /= np.linalg.norm(z, axis=1, keepdims=True)
+        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+        return (t(d), t(z), torch.full((B,), 0.7, dtype=torch.float64,
+                                       device=dev),
+                torch.full((B,), kp, dtype=torch.int32, device=dev))
+
+    def median_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    # FP64 instruction rate of the root solve: the sweeps with a
+    # reciprocal (niter + 4 of the niter + 5) issue per_term FP64-pipe
+    # instructions per (root, pole) pair; over the card's FP64 issue rate,
+    # 64 lanes per SM per clock.
+    from repro_torch.kernels import _build
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split()
+    peak_instr = (torch.cuda.get_device_properties(0).multi_processor_count
+                  * 64 * float(clock[0]) * 1e6) if clock else None
+    _build.build_all(["secular_roots"])
+    per_term = {"secular_roots": _fp64_per_term(
+        _build.build_dir() / "libsecular_roots.so", "secular_roots_kernel"),
+        "resident_merge": None}
+
+    def emit(kernel, shape, ms, ops, nbytes, pairs, **extra):
+        bound = max(ops / PEAK_FP64, nbytes / PEAK_BYTES) * 1e3
+        rate = (per_term[kernel] * pairs * (niter + 4) / (ms * 1e-3)
+                if per_term[kernel] else None)
+        print(json.dumps(dict(
+            label=args.label, kernel=kernel, shape=shape, ms=ms,
+            bound_ms=bound, ops_per_s=ops / (ms * 1e-3),
+            fp64_per_term=per_term[kernel], fp64_instr_per_s=rate,
+            fp64_issue_share=(rate / peak_instr if rate and peak_instr
+                              else None), card=smi, **extra)), flush=True)
+
+    niter = 16
+    for B, K, kp in ROOTS:
+        d, z, rho, kpr = problem(B, K, kp, seed=K + kp)
+        z2 = z * z
+        ms = median_ms(lambda: secular_solve_cuda(d, z2, rho, kpr,
+                                                  niter=niter))
+        emit("secular_roots", f"B={B} K={K} kprime={kp} f64", ms,
+             _secular_ops(B, kp, niter), (2 * 8 + 4 + 8) * B * K + 12 * B,
+             float(B) * kp * kp)
+    torch.manual_seed(0)
+    for B, r, K, kp in RESIDENT:
+        d, z, rho, kpr = problem(B, K, kp, seed=K + r)
+        R = torch.randn(B, r, K, dtype=torch.float64, device=dev)
+        ms = median_ms(lambda: resident_merge_cuda(d, z, R, rho, kpr,
+                                                   niter=niter))
+        extra = {}
+        if hasattr(rmod, "launch_shape"):
+            s = rmod.launch_shape(B, K, r, torch.float64, rmod.sm_count(0))
+            extra = dict(team=s.team, cluster=s.cluster, threads=s.threads,
+                         smem=s.smem, max_active_clusters=(
+                             rmod.max_active_clusters(0, torch.float64, r, K,
+                                                      s)))
+        emit("resident_merge", f"B={B} r={r} K={K} kprime={kp} f64", ms,
+             _secular_ops(B, kp, niter) + _postpass_ops(B, kp, r),
+             ((2 * r + 6) * 8 + 4) * B * K + 12 * B, float(B) * kp * kp,
+             **extra)
+        if args.sweep_clusters:
+            _sweep_clusters(rmod, median_ms, emit, d, z, R, rho, kpr, B, r,
+                            K, kp, niter)
+    return 0
+
+
+def _sweep_clusters(rmod, median_ms, emit, d, z, R, rho, kpr, B, r, K, kp,
+                    niter):
+    """The resident merge at every cluster size it takes, launched through
+    its wrapper with launch_shape replaced for the call."""
+    import torch
+    picked = rmod.launch_shape
+    ref = rmod.resident_merge_cuda(d, z, R, rho, kpr, niter=niter)
+    C = 1
+    try:
+        while C <= min(rmod.MAX_CLUSTER, max(1, K // rmod.MIN_ROOTS_PER_CTA)):
+            share = -(-K // C)
+            shape = rmod.LaunchShape(
+                rmod.TEAM, C,
+                min(rmod.MAX_THREADS, -(-share * rmod.TEAM // 32) * 32),
+                rmod.smem_bytes(r, K, torch.float64))
+            rmod.launch_shape = lambda *a, s=shape: s
+            out = rmod.resident_merge_cuda(d, z, R, rho, kpr, niter=niter)
+            ms = median_ms(lambda: rmod.resident_merge_cuda(
+                d, z, R, rho, kpr, niter=niter))
+            emit("resident_merge", f"B={B} r={r} K={K} kprime={kp} f64", ms,
+                 _secular_ops(B, kp, niter) + _postpass_ops(B, kp, r),
+                 ((2 * r + 6) * 8 + 4) * B * K + 12 * B, float(B) * kp * kp,
+                 sweep=True, cluster=C, threads=shape.threads,
+                 max_active_clusters=rmod.max_active_clusters(
+                     0, torch.float64, r, K, shape),
+                 bitwise_equal=all(torch.equal(a, b)
+                                   for a, b in zip(out, ref)))
+            C *= 2
+    finally:
+        rmod.launch_shape = picked
+
+
+if __name__ == "__main__":
+    sys.exit(main())

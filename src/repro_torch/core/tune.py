@@ -20,12 +20,13 @@ _LOCK = threading.Lock()
 _BACKEND: str | None = None
 
 # Largest merge size K the resident kernel (csrc/resident_merge.cu) takes.
-# It keeps one merge lane's O(K) vectors in shared memory: d, z, d[origin],
-# tau and zhat, plus the r selected rows, i.e. (5 + r) * K * itemsize
-# bytes.  The worst case on the main path is r = 3 rows in float64:
-# 8 * K * 8 = 64 K bytes.  A Hopper block can use at most 232,448 bytes
-# of dynamic shared memory, so K <= 3632; merge sizes are 2 * leaf * 2^l,
-# and the largest power of two that fits is K = 2048 (131,072 bytes).
+# Each CTA of it keeps one merge lane's O(K) vectors in shared memory: d,
+# z (then zhat), d[origin] and tau, plus the r selected rows, i.e.
+# (4 + r) * K * itemsize bytes.  The worst case on the main path is r = 3
+# rows in float64: 7 * K * 8 = 56 K bytes.  A Hopper block can use at most
+# 232,448 bytes of dynamic shared memory, so K <= 4150; merge sizes are
+# 2 * leaf * 2^l, and K = 2048 (114,688 bytes, two CTAs to an SM) is the
+# threshold.
 RESIDENT_THRESHOLD_CUDA = 2048
 
 _DEFAULTS = {

@@ -4,78 +4,142 @@
 // (the Pallas TPU kernel _secular_kernel; grid = problems x root blocks).
 // Plain version beside it: repro_torch.core.secular.secular_solve_batched.
 //
-// What bounds it on this card: FP64 arithmetic.  Each root sweeps all
-// kprime active poles niter + 5 times, about six operations (two of them
-// divisions) per root and pole per sweep, so a merge does O(niter * K^2)
-// work on O(K) bytes: far above the H100's operations-per-byte balance.
-// The FP64 divide sequence is the costliest part of each term.
+// What bounds it on this card: FP64 arithmetic.  Each root sweeps the
+// kprime active poles niter + 5 times, about six operations per (root,
+// pole) pair per sweep (one of them a reciprocal), so a merge does
+// O(niter K^2) work on O(K) bytes: far above the H100's operations-per-
+// byte balance.  The work is a long chain per root (each sweep's sum
+// feeds the next step), so what the card loses on it is latency: an FP64
+// reciprocal sequence and a running sum per term, with nothing to hide
+// them unless many roots are in flight on every SM.  The main path's top
+// merge is one problem (B = 1) of K = 16384 roots.
 //
-// What the design does about it: one thread per root, so every thread
-// runs its own iteration with no cross-thread reduction and no atomics
-// (each output element has exactly one writer, so batched and looped
-// launches give identical results).  The poles and squared weights of a
-// problem are staged through shared memory in tiles of POLE_TILE, read by
-// every thread of the block at the same address (a broadcast, no bank
-// conflicts), so device memory is read once per block per sweep.
+// What the design does about it: every root is solved by a team of TEAM
+// = 8 lanes of one warp (secular_common.cuh), so a block of THREADS = 256
+// threads solves 32 roots and the K = 16384 merge runs 131,072 threads
+// (4,096 warps, 31 for each of the 132 SMs; the old one-thread-per-root
+// kernel had 4), and every warp carries four independent sums.  Each
+// lane forms one reciprocal per term where the old kernel divided twice.
+// The block's poles and squared weights stream through a ring of STAGES
+// shared-memory tiles of TILE poles loaded with cp.async
+// (__pipeline_memcpy_async): the load of tile t + STAGES - 1 is issued as
+// tile t's sweep starts, so it overlaps the arithmetic, and one barrier
+// per tile both publishes tile t and frees the slot that the load reuses.
+// The 4 teams of a warp read the same addresses (a broadcast), and the
+// TEAM lanes of a team read TEAM consecutive elements (no bank conflict).
+// A sweep runs over the kprime active poles only, and a block whose roots
+// are all deflated writes them and leaves.
 //
-// Sizes (derived for Hopper, not taken from the TPU kernel): a block is
-// ROOTS_PER_BLOCK = 64 threads (two warps) so that the main path's top
-// merge, one problem of K = 16384 roots, still spreads over 256 blocks,
-// about two per SM of the 132.  A tile of POLE_TILE = 256 poles is 4 KiB
-// of shared memory in double precision and takes each thread four loads.
+// Sizes (derived for Hopper, no TPU constant carried over): TEAM = 8 keeps
+// the butterfly to three exchanges and the scalar part of the iteration,
+// which every lane of a team repeats, to 8 copies per root, while the
+// smallest root launch of the main path (K = 4096, 4 problems) still puts
+// 31 warps of work on each SM; blocks of 256 threads leave up to 128
+// registers a thread at two blocks per SM (__launch_bounds__(256, 2);
+// the float64 kernel takes 96, so 16 warps are resident on an SM and the
+// rest queue).
+// TILE = 512 poles gives each lane 64 terms between barriers; STAGES = 3
+// keeps two tiles in flight: 3 x 512 x (8 + 8) bytes = 24 KiB of static
+// shared memory per block in float64.  32 roots per block share each tile,
+// so the K = 16384 merge moves 0.13 GB per sweep from L2 into shared
+// memory, against ~1.6e9 operations of arithmetic per sweep.
+//
+// What still bounds it: a g/g' term compiles to 12 FP64-pipe instructions
+// and one reciprocal estimate, one dependent chain, and 16 resident warps
+// keep the FP64 pipe about half busy (PERF.md, with the timings).
+#include <cuda_pipeline.h>
+
 #include "secular_common.cuh"
 
 namespace {
 
-constexpr int ROOTS_PER_BLOCK = 64;
-constexpr int POLE_TILE = 256;
+using secular::TEAM;
+constexpr int THREADS = 256;
+constexpr int ROOTS_PER_BLOCK = THREADS / TEAM;
+constexpr int TILE = 512;
+constexpr int STAGES = 3;
 
 template <typename T>
-struct TiledPoles {
+struct RingPoles {
   const T* d;
   const T* z2;
-  int K;
-  T* sd;
+  int n;      // active poles (kprime)
+  int lane;   // this thread's lane in its team
+  T* sd;      // STAGES x TILE
   T* sz;
+
+  __device__ void load(int tile) {
+    const int start = tile * TILE;
+    const int cnt = n - start < TILE ? n - start : TILE;
+    T* td = sd + (tile % STAGES) * TILE;
+    T* tz = sz + (tile % STAGES) * TILE;
+    for (int t = threadIdx.x; t < cnt; t += THREADS) {
+      __pipeline_memcpy_async(td + t, d + start + t, sizeof(T));
+      __pipeline_memcpy_async(tz + t, z2 + start + t, sizeof(T));
+    }
+  }
 
   template <class F>
   __device__ void sweep(F f) {
-    for (int start = 0; start < K; start += POLE_TILE) {
-      const int n = K - start < POLE_TILE ? K - start : POLE_TILE;
+    const int ntiles = (n + TILE - 1) / TILE;
+    // Every thread is done with the previous sweep's slots.
+    __syncthreads();
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < ntiles) load(s);
+      __pipeline_commit();
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      __pipeline_wait_prior(STAGES - 2);
+      // Tile t has landed for every thread, and every thread has finished
+      // tile t - 1, whose slot the next load reuses.
       __syncthreads();
-      for (int t = threadIdx.x; t < n; t += blockDim.x) {
-        sd[t] = d[start + t];
-        sz[t] = z2[start + t];
-      }
-      __syncthreads();
-      for (int t = 0; t < n; ++t) f(start + t, sd[t], sz[t]);
+      if (t + STAGES - 1 < ntiles) load(t + STAGES - 1);
+      __pipeline_commit();
+      const int start = t * TILE;
+      const int cnt = n - start < TILE ? n - start : TILE;
+      const T* td = sd + (t % STAGES) * TILE;
+      const T* tz = sz + (t % STAGES) * TILE;
+#pragma unroll 4
+      for (int k = lane; k < cnt; k += TEAM) f(start + k, td[k], tz[k]);
     }
   }
 };
 
 template <typename T>
-__global__ void __launch_bounds__(ROOTS_PER_BLOCK)
+__global__ void __launch_bounds__(THREADS, 2)
 secular_roots_kernel(const T* __restrict__ d, const T* __restrict__ z2,
                      const T* __restrict__ rho, const int* __restrict__ kprime,
                      int* __restrict__ origin, T* __restrict__ tau,
                      int K, int niter) {
-  __shared__ T sd[POLE_TILE];
-  __shared__ T sz[POLE_TILE];
+  __shared__ T sd[STAGES * TILE];
+  __shared__ T sz[STAGES * TILE];
   const int b = blockIdx.y;
-  const int j = blockIdx.x * ROOTS_PER_BLOCK + threadIdx.x;
-  const T* db = d + (size_t)b * K;
-  const T* zb = z2 + (size_t)b * K;
-  TiledPoles<T> src{db, zb, K, sd, sz};
+  const secular::Team team;
+  const int j = blockIdx.x * ROOTS_PER_BLOCK + (int)threadIdx.x / TEAM;
+  const size_t off = (size_t)b * K;
+  const int kp = kprime[b];
+  // A block of deflated roots only: (min(j, K-1), 0).  The branch is the
+  // same for the whole block, so no barrier is left waiting.
+  if (blockIdx.x * ROOTS_PER_BLOCK >= kp) {
+    if (team.lane == 0 && j < K) {
+      origin[off + j] = j;
+      tau[off + j] = T(0);
+    }
+    return;
+  }
+  const T* db = d + off;
+  const T* zb = z2 + off;
+  RingPoles<T> src{db, zb, kp, team.lane, sd, sz};
   int o;
   T t;
-  // Threads past K still run the sweeps: the tile loads synchronise the
-  // whole block.  Their results are not written.
+  // Teams past K or past kprime still run the sweeps: the tile loads
+  // synchronise the whole block.  solve_root writes their deflated value.
   secular::solve_root<T>(
-      j, K, kprime[b], rho[b], niter, src,
-      [&](int i) { return db[i]; }, [&](int i) { return zb[i]; }, &o, &t);
-  if (j < K) {
-    origin[(size_t)b * K + j] = o;
-    tau[(size_t)b * K + j] = t;
+      team, j, K, kp, rho[b], niter, src, [&](int i) { return db[i]; },
+      [&](int i) { return zb[i]; }, &o, &t);
+  if (team.lane == 0 && j < K) {
+    origin[off + j] = o;
+    tau[off + j] = t;
   }
 }
 
@@ -83,8 +147,7 @@ template <typename T>
 int launch(const T* d, const T* z2, const T* rho, const int* kprime,
            int* origin, T* tau, int B, int K, int niter, void* stream) {
   dim3 grid((K + ROOTS_PER_BLOCK - 1) / ROOTS_PER_BLOCK, B);
-  secular_roots_kernel<T><<<grid, ROOTS_PER_BLOCK, 0,
-                            (cudaStream_t)stream>>>(
+  secular_roots_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       d, z2, rho, kprime, origin, tau, K, niter);
   return (int)cudaGetLastError();
 }

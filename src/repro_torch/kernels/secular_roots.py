@@ -2,9 +2,10 @@
 ``csrc/secular_roots.cu`` (replaces the Pallas TPU kernel
 ``repro.kernels.secular_roots.secular_solve_pallas_batch``).
 
-One thread per root, one grid row per problem, poles staged through
-shared memory; see the source for the design.  The plain version beside
-it is ``repro_torch.core.secular.secular_solve_batched``: on a CPU tensor
+A team of lanes per root, 256-thread blocks, one grid row per problem,
+poles streamed through a cp.async ring of shared-memory tiles; see the
+source for the design.  The plain version beside it is
+``repro_torch.core.secular.secular_solve_batched``: on a CPU tensor
 ``kernels.ops`` runs that; on a CUDA tensor it launches this kernel.
 """
 

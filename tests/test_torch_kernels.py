@@ -13,7 +13,9 @@
     bit for bit (counts and derivative sums); the QL kernel at
     64 eps * max(1, ||T||_inf), the conformance bar (hypot differs
     between math libraries by an ulp, which moves QL's trajectory by
-    about the algorithm's own error).
+    about the algorithm's own error); the root solve and the resident
+    merge also batched == looped, and equal bit for bit whatever launch
+    shape (cluster and CTA size) a batch gives them.
 """
 
 import os
@@ -171,6 +173,80 @@ def test_batched_kernel_equals_looped_kernel_bitwise(cuda_device):
         zb, rb = secular_postpass_cuda(R[s], d[s], z[s], o[s], t[s], kp[s],
                                        rho[s])
         assert torch.equal(zb[0], zh[b]) and torch.equal(rb[0], rows[b])
+
+
+@pytest.mark.gpu
+def test_resident_batched_equals_looped_bitwise(cuda_device):
+    # Lanes of three kprimes in one launch.
+    parts = [_problem(B, 300, kprime, seed=14 + kprime, device=cuda_device)
+             for B, kprime in ((2, 250), (1, 300), (1, 7))]
+    d, z, rho, kp = (torch.cat(t) for t in zip(*parts))
+    R = torch.randn(4, 3, 300, dtype=d.dtype, device=cuda_device)
+    res = resident_merge_cuda(d, z, R, rho, kp, niter=16)
+    for b in range(4):
+        s = slice(b, b + 1)
+        one = resident_merge_cuda(d[s], z[s], R[s], rho[s], kp[s], niter=16)
+        for a, c in zip(one, res):
+            assert torch.equal(a[0], c[b])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K,kprime,B", [(64, 48, 600), (2048, 1536, 200)])
+def test_kernels_bitwise_across_launch_shapes(cuda_device, dtype, K, kprime,
+                                              B):
+    """The same lanes launched alone (B = 1) and inside a batch of B, where
+    the resident merge's cluster size differs (at K = 64 a lane is split
+    in two up to 528 lanes, so the batch takes 600): both kernels give the
+    same bits (a root's sums run in an order set by the team size and the
+    index alone)."""
+    from repro_torch.kernels.resident_merge import launch_shape, sm_count
+    d, z, rho, kp = _problem(B, K, kprime, seed=K + 15, dtype=dtype,
+                             device=cuda_device)
+    R = torch.randn(B, 3, K, dtype=dtype, device=cuda_device)
+    sms = sm_count(d.device.index)
+    assert (launch_shape(1, K, 3, dtype, sms)
+            != launch_shape(B, K, 3, dtype, sms))
+    niter = ops.resolve_niter(None, dtype)
+    o, t = secular_solve_cuda(d, z * z, rho, kp, niter=niter)
+    res = resident_merge_cuda(d, z, R, rho, kp, niter=niter)
+    for b in (0, 77, B - 1):
+        s = slice(b, b + 1)
+        ob, tb = secular_solve_cuda(d[s], (z * z)[s], rho[s], kp[s],
+                                    niter=niter)
+        assert torch.equal(ob[0], o[b]) and torch.equal(tb[0], t[b])
+        one = resident_merge_cuda(d[s], z[s], R[s], rho[s], kp[s],
+                                  niter=niter)
+        for a, c in zip(one, res):
+            assert torch.equal(a[0], c[b])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", [64, 2048])
+@pytest.mark.parametrize("edge", ["1", "K-1", "K"])
+def test_roots_and_resident_at_kprime_edges_match_plain(cuda_device, dtype,
+                                                        K, edge):
+    """kprime of 1 (the closed form), K - 1 and K (no deflated root), at
+    the smallest and the largest resident merge size."""
+    kprime = {"1": 1, "K-1": K - 1, "K": K}[edge]
+    d, z, rho, kp = _problem(2, K, kprime, seed=K + kprime, dtype=dtype,
+                             device=cuda_device)
+    R = torch.randn(2, 3, K, dtype=dtype, device=cuda_device)
+    niter = ops.resolve_niter(None, dtype)
+    lam_tol, atol, rtol = _tols(dtype)
+    o1, t1 = secular_solve_cuda(d, z * z, rho, kp, niter=niter)
+    o2, t2 = tsec.secular_solve_batched(d, z * z, rho, kp, niter=niter)
+    torch.testing.assert_close(tsec.secular_eigenvalues(d, o1, t1),
+                               tsec.secular_eigenvalues(d, o2, t2),
+                               atol=lam_tol, rtol=0)
+    res1 = resident_merge_cuda(d, z, R, rho, kp, niter=niter)
+    res2 = tsec.secular_merge_resident_batched(d, z, R, rho, kp, niter=niter)
+    torch.testing.assert_close(tsec.secular_eigenvalues(d, *res1[:2]),
+                               tsec.secular_eigenvalues(d, *res2[:2]),
+                               atol=lam_tol, rtol=0)
+    for a, b in zip(res1[2:], res2[2:]):
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
 
 
 def _sturm_problem(B, n, S, seed, dtype=torch.float64, device="cpu"):
