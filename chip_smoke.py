@@ -14,14 +14,17 @@ per source, in parallel), then:
   2. holds each kernel against its plain torch version on the card at the
      main path's shapes, in float64 and float32 (tolerances of
      tests/test_kernels.py, float32 scaled by eps, and scaled by K for
-     the row update's r = K sums; the Sturm counts and their derivative
+     the row update's r > 4 sums; the Sturm counts and their derivative
      sums bit for bit; the QL kernel at 64 eps ||T||_inf against its plain
      loop on the CPU), timing both, and the row update beside
      torch.matmul of a pre-formed Y (the product only); times one shift's
-     Sturm chain on one thread (the latency bound of a bisection trip);
-     prints the root solve's and the resident merge's launch design (team
-     size, cluster size at every resident level, registers and spills)
-     and times their library yardstick, torch.linalg.eigvalsh of the
+     Sturm chain on one thread (the latency bound of a bisection trip) and
+     QL's rotation chain on one thread (the chain probe: QL's chain bound
+     at n = 4096); prints the launch design of the root solve, the
+     resident merge, the row update and the QL kernel (team and cluster
+     sizes, tiles and paths, shared memory, registers and spills, and the
+     DMMA instructions of the row update's tensor-core path) and times the
+     merge kernels' library yardstick, torch.linalg.eigvalsh of the
      pre-formed diag(d) + rho z z^T, at the kernel table's shapes;
   3. drives the main path -- ``eigvalsh_tridiagonal`` at n = 16384
      (uniform) and ``eigvalsh_tridiagonal_batch`` at B = 64, n = 4096 for
@@ -79,6 +82,7 @@ run on every eigenvalue).
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -297,13 +301,30 @@ def _ptxas(log):
     return out
 
 
-def _regs(log, kernel, dtype_code):
-    """(registers, spill stores, spill loads) of ``kernel``<T> (T = 'd' or
-    'f') in a ptxas log."""
-    for fn, v in _ptxas(log).items():
-        if f"{kernel}I{dtype_code}E" in fn:
-            return v
-    raise AssertionError(f"no ptxas entry for {kernel}<{dtype_code}>")
+def _regs(log, key):
+    """(registers, spill stores, spill loads) of the one kernel whose
+    mangled name contains ``key`` in a ptxas log (``...kernelIdE``: the
+    kernel's float64 instance)."""
+    hits = [v for fn, v in _ptxas(log).items() if key in fn]
+    if len(hits) != 1:
+        raise AssertionError(f"{len(hits)} ptxas entries match {key}")
+    return hits[0]
+
+
+def _sass_count(lib, kernel, opcode):
+    """How many ``opcode`` instructions the SASS of the functions of
+    ``lib`` whose name contains ``kernel`` holds (cuobjdump), or None
+    where the toolkit has no cuobjdump."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    return sum(len(re.findall(rf"\b{opcode}\b", fn))
+               for fn in re.split(r"\n\s*Function : ", sass)[1:]
+               if kernel in fn.split("\n", 1)[0])
 
 
 def main() -> int:
@@ -331,6 +352,8 @@ def main() -> int:
     from repro_torch.core import tune
     from repro_torch.core.br_dc import workspace_model
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import boundary_update as bmod
+    from repro_torch.kernels import sterf as qlk
     from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
     from repro_torch.kernels.fused_update import secular_postpass_cuda
     from repro_torch.kernels import resident_merge as rmod
@@ -406,7 +429,7 @@ def main() -> int:
     for name, kern in (("secular_roots", "secular_roots_kernel"),
                        ("resident_merge", "resident_merge_kernel")):
         log = (_build.build_dir() / f"{name}.log").read_text()
-        design[name] = {tag: _regs(log, kern, code)
+        design[name] = {tag: _regs(log, f"{kern}I{code}E")
                         for tag, code in (("float64", "d"), ("float32", "f"))}
     regs_txt = {name: "; ".join(f"{tag} {v[0]} registers, spill stores "
                                 f"{v[1]} B, loads {v[2]} B"
@@ -528,11 +551,19 @@ def main() -> int:
         # path gives them -- r = 3 rows at K = 4096 (B = 4) and 8192
         # (B = 2), the top levels of an n = 16384 fused=False solve, and
         # r = K rows at K = 2048 and 4096 (B = 1), the top levels of an
-        # n = 4096 full-vector solve.  r = K sums run over K terms: their
-        # tolerance scales by K / 64.  Yardstick: torch.matmul of the
-        # pre-formed normalized Y (the product only, never the port).
-        for B, K, r in ((4, 4096, 3), (2, 8192, 3), (1, 2048, 2048),
-                        (1, 4096, 4096)):
+        # n = 4096 full-vector solve -- and r = 5 at K = 4096, the fewest
+        # rows of the tile path.  An r > 4 output entry is a K-term dot
+        # product of a row of R with a unit column of Y: it is held to
+        # atol + 2 sqrt(K) eps ||R[b, i, :]||, and a zeroed and a
+        # sign-flipped output must fail that bar.  Yardstick: torch.matmul
+        # of the pre-formed normalized Y (the product only, never the
+        # port).
+        two_pass_shapes = ((4, 4096, 3), (2, 8192, 3), (1, 4096, 5),
+                           (1, 2048, 2048), (1, 4096, 4096))
+        print(f"[2 design] boundary_update {tag}: " + "; ".join(
+            f"B={B} r={r} K={K}: {bmod.launch_shape(B, r, K, dtype)}"
+            for B, K, r in two_pass_shapes))
+        for B, K, r in two_pass_shapes:
             kp = (7 * K) // 8
             d, z, rho, kpr = problem(B, K, kp, seed=K + r + 7, dtype=dtype)
             o, t = secular_solve_cuda(d, z * z, rho, kpr, niter=niter)
@@ -556,15 +587,29 @@ def main() -> int:
                 R, d, w, o, t, kpr)
             run_p = lambda: sec.boundary_rows_update_batched(  # noqa: E731
                 R, d, w, o, t, kpr, chunk=256)
-            sc = max(1.0, K / 64) if r > 4 else 1.0
-            eb, okb = excess(run_k(), run_p(), atol * sc, rtol * sc)
+            got, want = run_k(), run_p()
+            extra = ""
+            if r > 4:
+                bar = atol + (2 * math.sqrt(K) * float(torch.finfo(
+                    dtype).eps)) * R.norm(dim=2, keepdim=True)
+                eb, okb = excess(got, want, bar, 0.0)
+                e0, ok0 = excess(torch.zeros_like(got), want, bar, 0.0)
+                ef, okf = excess(-got, want, bar, 0.0)
+                okb = okb and not ok0 and not okf
+                extra = (f"; bar atol + 2 sqrt(K) eps ||R row|| <= "
+                         f"{float(bar.max()):.3e}, a zeroed output "
+                         f"{e0:.3e} and a sign-flipped one {ef:.3e} "
+                         f"{'fail' if not (ok0 or okf) else 'PASS'} it")
+            else:
+                eb, okb = excess(got, want, atol, rtol)
+            del got, want
             bk_ms, bp_ms = _cuda_ms(torch, run_k), _cuda_ms(torch, run_p, 3)
             Y = _dense_y(torch, d, w, o, t, kpr)
             lib_ms = _cuda_ms(torch, lambda: torch.matmul(R, Y))
             del Y
             report("boundary_update", dtype, (B, r, K, kp), eb, okb, bk_ms,
                    bp_ms, f"; torch.matmul of a pre-formed Y (product "
-                   f"only) {lib_ms:.3f} ms")
+                   f"only) {lib_ms:.3f} ms{extra}")
             if tag == "float64":
                 record[("boundary", r, K)] = dict(
                     max_abs_err=eb, ms=bk_ms, plain_ms=bp_ms,
@@ -622,6 +667,36 @@ def main() -> int:
                    p_ms, f" (plain on the CPU); rotations kernel "
                    f"{int(steps_k[0])} plain {int(steps_p[0])}; bar "
                    f"{bar:.3e}")
+
+    # The two redesigned kernels' builds: registers and spills (ptxas) of
+    # each kernel function, the DMMA instructions of the row update's
+    # tensor-core path (cuobjdump), and the QL kernel's launch shape.
+    bu_log = (_build.build_dir() / "boundary_update.log").read_text()
+    bu_regs = {}
+    for tag, code in (("f64", "d"), ("f32", "f")):
+        for nr in range(5):
+            bu_regs[f"team r={nr} {tag}"] = _regs(
+                bu_log, f"rows_team_kernelI{code}Li{nr}E")
+        bu_regs[f"simt {tag}"] = _regs(bu_log, f"rows_tile_kernelI{code}E")
+    bu_regs["mma f64"] = _regs(bu_log, "rows_mma_kernelE")
+    dmma = _sass_count(_build.build_dir() / "libboundary_update.so",
+                       "rows_mma_kernel", "DMMA")
+    print("[2 design] boundary_update registers, spill stores, spill loads "
+          "(B): " + "; ".join(f"{k} {v[0]}, {v[1]}, {v[2]}"
+                              for k, v in bu_regs.items())
+          + f"; DMMA instructions in rows_mma_kernel's SASS: "
+            f"{'not measured (no cuobjdump)' if dmma is None else dmma}")
+    if dmma == 0:
+        raise AssertionError("the row update's tensor-core path has no DMMA")
+    ql_log = (_build.build_dir() / "sterf.log").read_text()
+    ql_regs = {"sterf f64": _regs(ql_log, "sterf_kernelIdE"),
+               "sterf f32": _regs(ql_log, "sterf_kernelIfE"),
+               "chain probe": _regs(ql_log, "chain_probe_kernel")}
+    print("[2 design] sterf: " + "; ".join(
+        f"n={n}: {qlk.launch_shape(1, n, torch.float64)}"
+        for n in (256, 4096, 16384)) + "; registers, spill stores, spill "
+        "loads (B): " + "; ".join(f"{k} {v[0]}, {v[1]}, {v[2]}"
+                                  for k, v in ql_regs.items()))
 
     # Sturm counts: the certify sweep of the batched front door (B = 64,
     # n = 4096, S = 2n shifts) and one bisection trip of a range solve
@@ -712,6 +787,31 @@ def main() -> int:
           f"about {int(c_cycles) / (chain_ms * 1e3):.0f} MHz); one trip "
           f"(S=64) {trip_ms:.4f} ms = {trip_ms / chain_ms:.3f}x this chain "
           f"bound ({smi})")
+
+    # QL's chain bound: the probe runs the kernel's rotation on one thread
+    # with its rows in registers (the first PROBE_ROWS + 1 rows of phase
+    # 7's n = 4096 uniform problem, 65536 passes), and the kernel's
+    # rotations on that problem times the probe's time per rotation bound
+    # the solve.
+    dq = torch.tensor(batches["uniform"][0][0], device=dev)
+    eq = torch.tensor(batches["uniform"][1][0], device=dev)
+    _, q_steps = sterf_cuda(dq[None], eq[None])
+    reps = 65536
+    run_p = lambda: qlk.chain_probe_cuda(dq, eq, reps)  # noqa: E731
+    _, _, p_rot, p_cyc, p_ok = run_p()
+    probe_ms = _cuda_ms(torch, run_p, 3)
+    if int(p_ok) != 1:
+        raise AssertionError("the chain probe left the rsqrt range")
+    ql_chain = dict(ns_per_rotation=probe_ms * 1e6 / int(p_rot),
+                    cycles_per_rotation=int(p_cyc) / int(p_rot),
+                    rotations=int(q_steps[0]))
+    ql_chain["bound_ms"] = ql_chain["ns_per_rotation"] * int(q_steps[0]) / 1e6
+    print(f"[2 chain] sterf: the rotation chain on one thread, rows in "
+          f"registers: {ql_chain['ns_per_rotation']:.2f} ns and "
+          f"{ql_chain['cycles_per_rotation']:.1f} SM cycles per rotation "
+          f"({int(p_rot)} rotations); chain bound at n=4096 uniform "
+          f"{int(q_steps[0])} rotations x that = {ql_chain['bound_ms']:.1f} "
+          f"ms ({smi})")
 
     # ---- phase 3: the main path -----------------------------------------
     # scipy references run in worker processes while the card works;
@@ -1093,7 +1193,9 @@ def main() -> int:
     ql_bar = _sterf_bar(4096) * ql_unit
     print(f"[7 compare] sterf kernel n=4096 uniform: {ql_ms:.1f} ms (one "
           f"run), {int(ql_steps[0])} rotations, "
-          f"{ql_ms * 1e6 / int(ql_steps[0]):.1f} ns per rotation; plain "
+          f"{ql_ms * 1e6 / int(ql_steps[0]):.1f} ns per rotation (chain "
+          f"bound {ql_chain['ns_per_rotation'] * int(ql_steps[0]) / 1e6:.1f}"
+          f" ms: {ql_chain['ns_per_rotation']:.2f} ns per rotation); plain "
           f"loop on the CPU {ql_plain_s:.1f} s; max diff {ql_err:.3e} = "
           f"{ql_err / ql_unit:.2f} eps*||T||_inf (bar "
           f"{_sterf_bar(4096):.0f}); library torch.linalg.eigvalsh of the "
@@ -1257,7 +1359,11 @@ def main() -> int:
         "bound_ms": qb, "bound_by": qb_by, "library_ms": ql_lib_ms,
         "library": "torch.linalg.eigvalsh of a pre-formed dense T",
         "shape": "B=1 n=4096 uniform f64 (one run; plain on the CPU)",
-        "rotations": steps, "ns_per_rotation": ql_ms * 1e6 / steps})
+        "rotations": steps, "ns_per_rotation": ql_ms * 1e6 / steps,
+        "chain_bound_ms": ql_chain["ns_per_rotation"] * steps / 1e6,
+        "chain_ns_per_rotation": ql_chain["ns_per_rotation"],
+        "chain_cycles_per_rotation": ql_chain["cycles_per_rotation"],
+        "sterf_n16384_ms": big["sterf"]["ms"] if n_ql == 16384 else None})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Time the main path's two merge kernels -- the secular root solve
-(``csrc/secular_roots.cu``) and the resident merge
-(``csrc/resident_merge.cu``) -- on one CUDA card, at the shapes of the
-kernel table in PERF.md and at every level of an n = 16384 solve that
-each kernel serves, with the real lane counts.
+"""Time the port's hand-written kernels on one CUDA card, at the shapes of
+the kernel table in PERF.md and at the levels of the solves they serve.
 
-    python3 scripts/time_merge_kernels.py [--src DIR] [--label NAME]
+    python3 scripts/time_merge_kernels.py [--kernels merge|two_pass]
+                                          [--src DIR] [--label NAME]
                                           [--sweep-clusters]
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (for
-instance an unpacked parent commit), so two versions of the kernels can
-be timed in turns inside one call on one card; each builds its own
-kernels under its own checkout.  Inputs are made from fixed seeds with
-numpy: sorted N(0, 1) poles, unit-norm weights, rho = 0.7, kprime as
+instance an unpacked parent commit: ``git archive <commit> src | tar -x
+-C build/parent``), so two versions of the kernels can be timed in turns
+inside one call on one card (parent, change, change, parent); each builds
+its own kernels under its own checkout.  Inputs are made from fixed seeds
+with numpy: sorted N(0, 1) poles, unit-norm weights, rho = 0.7, kprime as
 given (the level shapes use kprime = K, no deflation: the most work a
 level can take).  Times are CUDA events, median of 5 after a warm-up.
-Every line printed is one JSON object; the bound is the larger of the
+Every line printed is one JSON object with the card's name and power
+limit.
+
+``--kernels merge`` (the default): the main path's two merge kernels --
+the secular root solve (``csrc/secular_roots.cu``) and the resident merge
+(``csrc/resident_merge.cu``) -- at every level of an n = 16384 solve that
+each serves, with the real lane counts.  The bound is the larger of the
 operations over 34 TFLOP/s (FP64, a division or reciprocal counting as
 one) and the bytes over 3.35 TB/s, as in chip_smoke.py.  For the root
 solve the FP64 instruction rate is estimated too: the FP64-pipe
@@ -29,6 +34,32 @@ cluster size C the kernel takes (a power of two up to 16 and K / 32),
 with one CTA per team of a C-th of the lane, in place of the size that
 ``launch_shape`` picks, and says whether the results equal the picked
 launch's bit for bit.
+
+``--kernels two_pass``: the two-pass row update
+(``csrc/boundary_update.cu``) and the QL kernel (``csrc/sterf.cu``):
+
+  * the row update at chip_smoke.py's phase-2 shapes (r = 3 at B = 4,
+    K = 4096 and B = 2, K = 8192; r = K at K = 2048 and 4096; r = 5 at
+    K = 4096; kprime = 7K/8), beside ``torch.matmul`` of a pre-formed Y
+    (the product only);
+  * the row update at two r = K levels that deflate all but 1/16 of the
+    poles (B = 2, K = 8192, kprime = 512; B = 1, K = 16384,
+    kprime = 1024): the top levels of a full-vector solve of a uniform
+    matrix are mostly the copy of R's deflated columns;
+  * the row update at every r = K level of an n = 8192 full-vector solve
+    (8192 / K lanes, K = 64 ... 8192) and at every r = 3 level of an
+    n = 16384 ``fused=False`` solve (16384 / K lanes, K = 64 ... 16384);
+  * sterf at n = 1024 and 4096 (uniform, float64), and at n = 4096 once
+    more with (d, e) in device memory throughout -- the regime of a
+    problem too large for the block's shared memory (n > 14528 in
+    float64) until its active rows fit -- where the version has that
+    regime.
+
+The row update's origin and tau come from the version's own root solve
+and its weights from its own zhat kernel.  Its bound is the larger of its
+operations -- the product's 2 r kprime^2 per lane over the FP64 tensor
+cores' 67 TFLOP/s, the other 5 kprime^2 (the y entries and norms) over
+34 TFLOP/s -- and its bytes over 3.35 TB/s, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -43,6 +74,7 @@ import sys
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 PEAK_FP64 = 34e12
+PEAK_FP64_TENSOR = 67e12
 PEAK_BYTES = 3.35e12
 
 # (B, K, kprime) of the root solve: the table's shape, then the levels
@@ -55,6 +87,16 @@ ROOTS = [(1, 16384, 16384), (4, 4096, 4096), (2, 8192, 8192)]
 RESIDENT = [(64, 3, 2048, 1536), (256, 2, 64, 64), (128, 2, 128, 128),
             (64, 2, 256, 256), (32, 2, 512, 512), (16, 2, 1024, 1024),
             (8, 2, 2048, 2048), (128, 2, 2048, 2048)]
+# (B, r, K, kprime) of the row update: chip_smoke.py's phase-2 shapes.
+PHASE2 = [(4, 3, 4096, 3584), (2, 3, 8192, 7168), (1, 5, 4096, 3584),
+          (1, 2048, 2048, 1792), (1, 4096, 4096, 3584)]
+# The top r = K levels of a full-vector solve of a matrix that deflates
+# nearly every pole (as the uniform family does): mostly the pass-through
+# of R's deflated columns.
+DEFLATED = [(2, 8192, 8192, 512), (1, 16384, 16384, 1024)]
+FULL_N = 8192
+FUSED_FALSE_N = 16384
+STERF_N = (1024, 4096)
 
 
 def _secular_ops(B, kp, niter):
@@ -65,6 +107,65 @@ def _secular_ops(B, kp, niter):
 
 def _postpass_ops(B, kp, r):
     return float(B) * kp * kp * (10 + 2 * r)
+
+
+def _levels(n, rows):
+    """(B, r, K, kprime) of every level of an n-point solve from K = 64:
+    n / K lanes of K roots, r rows each (r = K where rows is None)."""
+    out, K = [], 64
+    while K <= n:
+        out.append((n // K, K if rows is None else rows, K, K))
+        K *= 2
+    return out
+
+
+def _row_update_bound_ms(B, r, kp, K):
+    pairs = float(B) * kp * kp
+    fma, rest = pairs * 2 * r, pairs * 5
+    t_ops = fma / PEAK_FP64_TENSOR + rest / PEAK_FP64
+    t_bytes = ((2 * r + 3) * 8 + 4) * B * K / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps=5):
+    """Median of ``reps`` CUDA-event times of fn() after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def problem(dev, B, K, kp, rng):
+    """A float64 merge problem on ``dev`` drawn from ``rng``: d, z, rho,
+    kprime."""
+    import numpy as np
+    import torch
+    d = np.sort(rng.standard_normal((B, K)), axis=1)
+    d[:, kp:] += 10.0
+    z = rng.standard_normal((B, K))
+    z[:, kp:] = 0.0
+    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    return (t(d), t(z), torch.full((B,), 0.7, dtype=torch.float64,
+                                   device=dev),
+            torch.full((B,), kp, dtype=torch.int32, device=dev))
 
 
 def _fp64_per_term(lib, kernel):
@@ -101,52 +202,31 @@ def _fp64_per_term(lib, kernel):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
+    ap.add_argument("--kernels", choices=("merge", "two_pass"),
+                    default="merge")
     ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--sweep-clusters", action="store_true")
     args = ap.parse_args()
-    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("time_merge_kernels: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.abspath(args.src))
+    dev = torch.device("cuda", 0)
+    smi = card()
+    if args.kernels == "two_pass":
+        return _time_two_pass(args.label, dev, smi)
+    return _time_merge(args, dev, smi)
+
+
+def _time_merge(args, dev, smi):
+    import numpy as np
+    import torch
     from repro_torch.kernels import resident_merge as rmod
     from repro_torch.kernels.resident_merge import resident_merge_cuda
     from repro_torch.kernels.secular_roots import secular_solve_cuda
-
-    dev = torch.device("cuda", 0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-
-    def problem(B, K, kp, seed):
-        rng = np.random.default_rng(seed)
-        d = np.sort(rng.standard_normal((B, K)), axis=1)
-        d[:, kp:] += 10.0
-        z = rng.standard_normal((B, K))
-        z[:, kp:] = 0.0
-        z /= np.linalg.norm(z, axis=1, keepdims=True)
-        t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
-        return (t(d), t(z), torch.full((B,), 0.7, dtype=torch.float64,
-                                       device=dev),
-                torch.full((B,), kp, dtype=torch.int32, device=dev))
-
-    def median_ms(fn, reps=5):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
 
     # FP64 instruction rate of the root solve: the sweeps with a
     # reciprocal (niter + 4 of the niter + 5) issue per_term FP64-pipe
@@ -177,7 +257,8 @@ def main() -> int:
 
     niter = 16
     for B, K, kp in ROOTS:
-        d, z, rho, kpr = problem(B, K, kp, seed=K + kp)
+        d, z, rho, kpr = problem(dev, B, K, kp,
+                                 np.random.default_rng(K + kp))
         z2 = z * z
         ms = median_ms(lambda: secular_solve_cuda(d, z2, rho, kpr,
                                                   niter=niter))
@@ -186,7 +267,7 @@ def main() -> int:
              float(B) * kp * kp)
     torch.manual_seed(0)
     for B, r, K, kp in RESIDENT:
-        d, z, rho, kpr = problem(B, K, kp, seed=K + r)
+        d, z, rho, kpr = problem(dev, B, K, kp, np.random.default_rng(K + r))
         R = torch.randn(B, r, K, dtype=torch.float64, device=dev)
         ms = median_ms(lambda: resident_merge_cuda(d, z, R, rho, kpr,
                                                    niter=niter))
@@ -202,13 +283,12 @@ def main() -> int:
              ((2 * r + 6) * 8 + 4) * B * K + 12 * B, float(B) * kp * kp,
              **extra)
         if args.sweep_clusters:
-            _sweep_clusters(rmod, median_ms, emit, d, z, R, rho, kpr, B, r,
-                            K, kp, niter)
+            _sweep_clusters(rmod, emit, d, z, R, rho, kpr, B, r, K, kp,
+                            niter)
     return 0
 
 
-def _sweep_clusters(rmod, median_ms, emit, d, z, R, rho, kpr, B, r, K, kp,
-                    niter):
+def _sweep_clusters(rmod, emit, d, z, R, rho, kpr, B, r, K, kp, niter):
     """The resident merge at every cluster size it takes, launched through
     its wrapper with launch_shape replaced for the call."""
     import torch
@@ -237,6 +317,80 @@ def _sweep_clusters(rmod, median_ms, emit, d, z, R, rho, kpr, B, r, K, kp,
             C *= 2
     finally:
         rmod.launch_shape = picked
+
+
+def _time_two_pass(label, dev, smi):
+    import numpy as np
+    import torch
+    from repro_torch.core import make_family
+    from repro_torch.kernels import sterf as qlk
+    from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
+    from repro_torch.kernels.secular_roots import secular_solve_cuda
+    from repro_torch.kernels.zhat import zhat_reconstruct_cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def emit(**rec):
+        print(json.dumps(dict(label=label, card=smi, **rec)), flush=True)
+
+    def inputs(B, r, K, kp, seed):
+        rng = np.random.default_rng(seed)
+        d, z, rho, kpr = problem(dev, B, K, kp, rng)
+        o, t = secular_solve_cuda(d, z * z, rho, kpr, niter=16)
+        w = zhat_reconstruct_cuda(d, z, o, t, kpr, rho)
+        R = torch.tensor(rng.standard_normal((B, r, K)), device=dev)
+        return R, d, w, o, t, kpr
+
+    def dense_y(d, w, o, t, kpr):
+        B, K = d.shape
+        d_org = torch.gather(d, 1, o.long())
+        active = torch.arange(K, device=dev)[None, :] < kpr[:, None]
+        delta = (d[:, :, None] - d_org[:, None, :]) - t[:, None, :]
+        act_i = active[:, :, None]
+        Y = torch.where(act_i, w[:, :, None] / torch.where(
+            act_i & (delta != 0), delta, torch.ones_like(delta)),
+            torch.zeros_like(delta))
+        del delta
+        Y /= (Y * Y).sum(1).sqrt().clamp(min=1e-300)[:, None, :]
+        return torch.where(active[:, None, :], Y,
+                           torch.eye(K, dtype=d.dtype, device=dev))
+
+    for group, shapes in (("phase2", PHASE2), ("deflated", DEFLATED),
+                          (f"full n={FULL_N}", _levels(FULL_N, None)),
+                          (f"fused=False n={FUSED_FALSE_N}",
+                           _levels(FUSED_FALSE_N, 3))):
+        for B, r, K, kp in shapes:
+            R, d, w, o, t, kpr = inputs(B, r, K, kp, seed=K + r + 7)
+            ms = median_ms(lambda: boundary_rows_update_cuda(
+                R, d, w, o, t, kpr))
+            lib = None
+            if group == "phase2":
+                Y = dense_y(d, w, o, t, kpr)
+                lib = median_ms(lambda: torch.matmul(R, Y))
+                del Y
+            emit(kernel="boundary_update", group=group,
+                 shape=f"B={B} r={r} K={K} kprime={kp} f64", ms=ms,
+                 bound_ms=_row_update_bound_ms(B, r, kp, K), matmul_ms=lib,
+                 product_tflops=2.0 * B * r * kp * kp / (ms * 1e-3) / 1e12)
+            del R, d, w, o, t, kpr
+            torch.cuda.empty_cache()
+
+    # sterf, and at the largest n the device-memory regime (rows = 0) of
+    # a version whose kernel has one (launch_shape gives its rows).
+    for n in STERF_N:
+        d, e = make_family("uniform", n, seed=0)
+        dd = torch.tensor(d, device=dev)[None]
+        ee = torch.tensor(e, device=dev)[None]
+        runs = [("launch_shape", lambda: qlk.sterf_cuda(dd, ee))]
+        if n == max(STERF_N) and hasattr(qlk, "launch_shape"):
+            runs.append(("device memory", lambda: qlk._launch(
+                dd, ee, 30 * n, 0)[1:]))
+        for regime, run in runs:
+            rot = int(run()[-1][0])
+            ms = median_ms(run)
+            emit(kernel="sterf", shape=f"B=1 n={n} uniform f64",
+                 regime=regime, ms=ms, rotations=rot,
+                 ns_per_rotation=ms * 1e6 / rot)
+    return 0
 
 
 if __name__ == "__main__":

@@ -18,6 +18,7 @@
     shape (cluster and CTA size) a batch gives them.
 """
 
+import math
 import os
 import subprocess
 import sys
@@ -36,6 +37,7 @@ from repro_torch.kernels.boundary_update import (  # noqa: E402
 from repro_torch.kernels.fused_update import secular_postpass_cuda  # noqa: E402
 from repro_torch.kernels.resident_merge import resident_merge_cuda  # noqa: E402
 from repro_torch.kernels.secular_roots import secular_solve_cuda  # noqa: E402
+from repro_torch.kernels import sterf as qlk  # noqa: E402
 from repro_torch.kernels.sterf import sterf_cuda  # noqa: E402
 from repro_torch.kernels.zhat import zhat_reconstruct_cuda  # noqa: E402
 from repro_torch.kernels.sturm_count import (  # noqa: E402
@@ -84,7 +86,8 @@ def _problem(B, K, kprime, seed, dtype=torch.float64, device="cpu"):
     d[:, kprime:] += 10.0
     z = rng.standard_normal((B, K))
     z[:, kprime:] = 0.0
-    z /= np.linalg.norm(z, axis=1, keepdims=True)
+    nrm = np.linalg.norm(z, axis=1, keepdims=True)
+    z /= np.where(nrm > 0, nrm, 1.0)           # kprime = 0: z stays zero
     t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
     return (t(d), t(z), torch.full((B,), 0.7, dtype=dtype, device=device),
             torch.full((B,), kprime, dtype=torch.int32, device=device))
@@ -373,46 +376,70 @@ def test_cpu_tensors_take_the_plain_two_pass_and_ql_versions():
                       sterf_cuda.launches)
 
 
+def _rows_bar(R, want, dtype):
+    """The row update's bar against its plain version, per entry: atol +
+    rtol |plain| for r <= 4 rows; for r > 4 an entry is a K-term dot
+    product of a row of R with a unit column of Y, held to atol +
+    2 sqrt(K) eps ||R[b, i, :]||."""
+    _, atol, rtol = _tols(dtype)
+    r, K = R.shape[1:]
+    if r <= 4:
+        return atol + rtol * want.abs()
+    return atol + (2 * math.sqrt(K) * float(torch.finfo(dtype).eps)
+                   * R.norm(dim=2, keepdim=True))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("B,K,kprime", [(3, 130, 101), (2, 1030, 700),
-                                        (1, 16, 1), (2, 257, 256)])
-@pytest.mark.parametrize("r", [1, 3, 4, 5, "K"])
+                                        (1, 16, 1), (2, 257, 256),
+                                        (2, 130, 0), (2, 300, 300)])
 def test_two_pass_kernels_match_plain_on_card(cuda_device, dtype, B, K,
-                                              kprime, r):
+                                              kprime):
     """zhat and the row update against their plain versions, with an exact
     zero denominator planted in root column 0 (the plain version's rule:
-    the pole contributes its weight)."""
-    r = K if r == "K" else r
-    d, z, rho, kp = _problem(B, K, kprime, seed=K + r, dtype=dtype,
-                             device=cuda_device)
-    R = torch.randn(B, r, K, dtype=dtype, device=cuda_device)
-    niter = ops.resolve_niter(None, dtype)
-    o, t = tsec.secular_solve_batched(d, z * z, rho, kp, niter=niter)
-    o[:, 0], t[:, 0] = 0, 0.0             # delta_00 == 0 exactly
-    _, atol, rtol = _tols(dtype)
-    w = zhat_reconstruct_cuda(d, z, o, t, kp, rho)
-    torch.testing.assert_close(
-        w, tsec.zhat_reconstruct_batched(d, z, o, t, kp, rho),
-        atol=atol, rtol=rtol)
-    rows = boundary_rows_update_cuda(R, d, w, o, t, kp)
-    # Column sums of r = K rows run over K terms: the tolerance scales
-    # with K.
-    scale = max(1.0, K / 64) if r > 4 else 1.0
-    torch.testing.assert_close(
-        rows, tsec.boundary_rows_update_batched(R, d, w, o, t, kp),
-        atol=atol * scale, rtol=rtol * scale)
+    the pole contributes its weight); kprime from 0 (every column passes
+    R through) to K, and r in {1, 3, 4, 5, 64, 65, 129, K}: both paths of
+    the row update (a team per column up to 4 rows, output tiles above:
+    on the FP64 tensor cores in float64) with ragged row tiles.  A zeroed
+    and a sign-flipped output must fail the row update's bar."""
+    for r in (1, 3, 4, 5, 64, 65, 129, K):
+        d, z, rho, kp = _problem(B, K, kprime, seed=K + r, dtype=dtype,
+                                 device=cuda_device)
+        R = torch.randn(B, r, K, dtype=dtype, device=cuda_device)
+        niter = ops.resolve_niter(None, dtype)
+        o, t = tsec.secular_solve_batched(d, z * z, rho, kp, niter=niter)
+        o[:, 0], t[:, 0] = 0, 0.0             # delta_00 == 0 exactly
+        _, atol, rtol = _tols(dtype)
+        w = zhat_reconstruct_cuda(d, z, o, t, kp, rho)
+        torch.testing.assert_close(
+            w, tsec.zhat_reconstruct_batched(d, z, o, t, kp, rho),
+            atol=atol, rtol=rtol, msg=lambda m: f"r={r}: {m}")
+        rows = boundary_rows_update_cuda(R, d, w, o, t, kp)
+        want = tsec.boundary_rows_update_batched(R, d, w, o, t, kp)
+        bar = _rows_bar(R, want, dtype)
+        err = (rows - want).abs()
+        assert bool(torch.isfinite(rows).all()), f"r={r}"
+        assert bool((err <= bar).all()), (
+            f"r={r}: max |kernel - plain| {float(err.max()):.3e}, "
+            f"worst excess {float((err - bar).max()):.3e}")
+        for wrong in (torch.zeros_like(rows), -rows):
+            assert not bool(((wrong - want).abs() <= bar).all()), f"r={r}"
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("r", [2, 70])
 def test_two_pass_batched_equals_looped_bitwise(cuda_device, r):
-    d, z, rho, kp = _problem(4, 300, 250, seed=r, device=cuda_device)
-    R = torch.randn(4, r, 300, dtype=d.dtype, device=cuda_device)
+    """A batch of 200 lanes against each lane launched alone (B = 1), bit
+    for bit, on both paths of the row update (r = 2: a team per column;
+    r = 70: tiles on the FP64 tensor cores)."""
+    B = 200
+    d, z, rho, kp = _problem(B, 300, 250, seed=r, device=cuda_device)
+    R = torch.randn(B, r, 300, dtype=d.dtype, device=cuda_device)
     o, t = secular_solve_cuda(d, z * z, rho, kp, niter=16)
     w = zhat_reconstruct_cuda(d, z, o, t, kp, rho)
     rows = boundary_rows_update_cuda(R, d, w, o, t, kp)
-    for b in range(4):
+    for b in range(B):
         s = slice(b, b + 1)
         wb = zhat_reconstruct_cuda(d[s], z[s], o[s], t[s], kp[s], rho[s])
         rb = boundary_rows_update_cuda(R[s], d[s], w[s], o[s], t[s], kp[s])
@@ -477,6 +504,20 @@ def _sterf_bar(d, e, dtype):
     return 64 * float(torch.finfo(dtype).eps) * max(1.0, T)
 
 
+# Scales that push f^2 + g^2 out of the reciprocal square root's range,
+# so the rotations take the guarded hypot branch.
+_QL_SCALE = {"big": {torch.float64: 1e150, torch.float32: 1e20},
+             "small": {torch.float64: 1e-150, torch.float32: 1e-20}}
+
+
+def _sterf_in_rows(d, e, rows):
+    """sterf_cuda with at most ``rows`` rows of (d, e) held in shared
+    memory (0: device memory throughout; None: launch_shape's), so that a
+    small problem runs a large one's regimes."""
+    lam, _, steps = qlk._launch(d, e, 30 * d.shape[1], rows)
+    return torch.sort(lam, dim=1).values, steps
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("family,n", [("uniform", 2), ("uniform", 100),
@@ -484,23 +525,59 @@ def _sterf_bar(d, e, dtype):
                                       ("glued_wilkinson", 200),
                                       ("wilkinson", 21)])
 def test_sterf_kernel_matches_plain_on_card(cuda_device, dtype, family, n):
+    """The QL kernel against its plain loop with (d, e) in shared memory
+    (the whole problem fits), in device memory (rows 0) and moving into
+    shared memory once the active rows fit (rows n / 2): the regimes on
+    both sides of the shared-memory limit, forced at a small n; and on
+    inputs scaled by 1e+-150 (float32: 1e+-20), where the rotations take
+    the guarded hypot branch."""
     d, e = make_family(family, n, seed=n)
-    dt = torch.tensor(d, dtype=dtype)[None]
-    et = torch.tensor(e, dtype=dtype)[None]
-    lam, steps = sterf_cuda(dt.to(cuda_device), et.to(cuda_device))
-    lam2, steps2 = tsterf.sterf_plain(dt, et)
-    np.testing.assert_allclose(lam.cpu().numpy(), lam2.numpy(), rtol=0,
-                               atol=_sterf_bar(d, e, dtype))
-    assert int(steps[0]) > 0 and int(steps2[0]) > 0
+    for rows, scale in ((None, None), (0, None), (n // 2, None),
+                        (None, "big"), (0, "small")):
+        s = _QL_SCALE[scale][dtype] if scale else 1.0
+        dt = torch.tensor(d * s, dtype=dtype)[None]
+        et = torch.tensor(e * s, dtype=dtype)[None]
+        lam, steps = _sterf_in_rows(dt.to(cuda_device), et.to(cuda_device),
+                                    rows)
+        lam2, steps2 = tsterf.sterf_plain(dt, et)
+        np.testing.assert_allclose(lam.cpu().numpy(), lam2.numpy(), rtol=0,
+                                   atol=_sterf_bar(d, e, dtype) * s,
+                                   err_msg=f"rows={rows} scale={scale}")
+        assert int(steps[0]) > 0 and int(steps2[0]) > 0
 
 
 @pytest.mark.gpu
 def test_sterf_batched_equals_looped_bitwise(cuda_device):
+    """Batched == looped, and the same bits with (d, e) in shared memory,
+    in device memory, or moving into shared memory midway."""
     D = np.stack([make_family("normal", 120, seed=s)[0] for s in range(5)])
     E = np.stack([make_family("normal", 120, seed=s)[1] for s in range(5)])
     d = torch.tensor(D, device=cuda_device)
     e = torch.tensor(E, device=cuda_device)
     lam, steps = sterf_cuda(d, e)
+    for rows in (0, 1, 37, 119, 120):
+        lr, sr = _sterf_in_rows(d, e, rows)
+        assert torch.equal(lr, lam) and torch.equal(sr, steps)
     for b in range(5):
         lb, sb = sterf_cuda(d[b:b + 1], e[b:b + 1])
         assert torch.equal(lb[0], lam[b]) and int(sb[0]) == int(steps[b])
+
+
+@pytest.mark.gpu
+def test_sterf_chain_probe_is_the_kernels_rotation(cuda_device):
+    """The chain probe's one pass over its register rows is the kernel's
+    first sweep, bit for bit: the same rotations and the same (d, e) after
+    one outer step of a matrix whose first split is its last row.  Longer
+    runs count reps x PROBE_ROWS rotations and stay finite."""
+    U = qlk.PROBE_ROWS
+    d, e = make_family("normal", U + 1, seed=7)
+    dt = torch.tensor(d, device=cuda_device)
+    et = torch.tensor(e, device=cuda_device)
+    pd, pe, rot, cycles, ok = qlk.chain_probe_cuda(dt, et, 1)
+    kd, ke, ksteps = qlk._launch(dt[None], et[None], 1)
+    assert int(rot) == int(ksteps[0]) == U and int(ok) == 1
+    assert torch.equal(pd, kd[0]) and torch.equal(pe, ke[0])
+    assert int(cycles) > 0
+    pd, pe, rot, cycles, ok = qlk.chain_probe_cuda(dt, et, 1000)
+    assert int(rot) == 1000 * U and int(cycles) > 0 and int(ok) == 1
+    assert bool(torch.isfinite(pd).all() and torch.isfinite(pe).all())
