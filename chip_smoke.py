@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the seven CUDA sources from ``src/repro_torch/csrc`` (one nvcc
+It builds the eight CUDA sources from ``src/repro_torch/csrc`` (one nvcc
 per source, in parallel), then:
 
   1. prints the card (``nvidia-smi`` name and power limit), the CUDA
@@ -25,15 +25,21 @@ per source, in parallel), then:
      sizes, tiles and paths, shared memory, registers and spills, and the
      DMMA instructions of the row update's tensor-core path) and times the
      merge kernels' library yardstick, torch.linalg.eigvalsh of the
-     pre-formed diag(d) + rho z z^T, at the kernel table's shapes;
+     pre-formed diag(d) + rho z z^T, at the kernel table's shapes; holds
+     the deflation chain kernel to the plain chain run on the card, bit
+     for bit, on real merge lanes (glued Wilkinson and uniform, W = 64 x
+     K = 2048 and W = 1 x K = 16384, r = 3; r = K = 512) and the edge
+     cases, in float64 and float32, and times one dependent step of its
+     chain on one warp (the chain probe);
   3. drives the main path -- ``eigvalsh_tridiagonal`` at n = 16384
      (uniform) and ``eigvalsh_tridiagonal_batch`` at B = 64, n = 4096 for
      every family -- with the kernels' launch counts zeroed just before and
-     read just after, and checks every spectrum against scipy at
+     read just after (the deflation chain once per merge level), and
+     checks every spectrum against scipy at
      64 * eps * max(1, ||T||_inf) (in worker processes, while the card
      works);
-  4. checks batched == looped and the boundary rows of a padded n = 1000
-     solve against numpy.linalg.eigh;
+  4. checks batched == looped, at 64 eps and then bit for bit, and the
+     boundary rows of a padded n = 1000 solve against numpy.linalg.eigh;
   6. drives the Sturm-count path, counts zeroed just before and read just
      after: ``eigvalsh_tridiagonal_range`` at n = 16384 (bottom 64, top
      64, the band [8160, 8224), and a select="v" window), ``kind="edges"``
@@ -59,11 +65,12 @@ per source, in parallel), then:
      sqrt(n), the JAX package's QL's too: see _sterf_bar); the QL kernel
      is held to its plain loop at n = 4096 and timed beside
      torch.linalg.eigvalsh of the pre-formed dense T;
-  5. times the n = 16384 solve and the B = 64 batch, the Sturm path's
-     range, bisect, certify and mixed solves (CUDA events, median of 5
-     after a warm-up), then traces one run of the two main-path solves,
-     the n = 16384 range solve and the two mixed solves with
-     torch.profiler to split device time by kernel.
+  5. times the n = 16384 solve and the B = 64 batch, a glued-Wilkinson
+     n = 4096 solve and B = 64 x 4096 batch, the Sturm path's range,
+     bisect, certify and mixed solves (CUDA events, median of 5 after a
+     warm-up), then traces one run of the two main-path solves, the glued
+     n = 4096 solve, the n = 16384 range solve and the two mixed solves
+     with torch.profiler to split device time by kernel.
 
 Every check raises on failure.  The last lines are a JSON record of the
 kernels, the card's name and power limit, and the result line
@@ -269,6 +276,31 @@ def _postpass_ops(kp, r):
     return float((kp.astype("float64") ** 2).sum()) * (10 + 2 * r)
 
 
+def _window_steps(small, defl, window=32):
+    """Dependent steps of each lane of the deflation chain kernel, read
+    from its result: the kernel tests ``window`` poles at a time and
+    restarts after the first rotation in a window, and the rotations' own
+    poles are the kept poles after the rotation-deflated ones.  small,
+    defl: (W, K) numpy bool.  Returns (W,) numpy int."""
+    import numpy as np
+    W, K = small.shape
+    out = np.zeros(W, dtype=np.int64)
+    for w in range(W):
+        kept = np.flatnonzero(~small[w])
+        fired = kept[np.searchsorted(kept, np.flatnonzero(
+            defl[w] & ~small[w]), side="right")]
+        start = k = 0
+        while start < K:
+            out[w] += 1
+            while k < len(fired) and fired[k] < start:
+                k += 1
+            if k < len(fired) and fired[k] < start + window:
+                start = int(fired[k]) + 1
+            else:
+                start += window
+    return out
+
+
 def _bound_ms(flops, nbytes, dtype):
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES
@@ -347,14 +379,17 @@ def main() -> int:
                                   make_family_batch)
     from repro_torch.core import baselines as bl
     from repro_torch.core import bisect as bis
+    from repro_torch.core import merge as mrg
     from repro_torch.core import secular as sec
     from repro_torch.core import sterf as qlmod
     from repro_torch.core import tune
     from repro_torch.core.br_dc import workspace_model
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import boundary_update as bmod
+    from repro_torch.kernels import deflate_chain as dck
     from repro_torch.kernels import sterf as qlk
     from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
+    from repro_torch.kernels.deflate_chain import deflate_chain_cuda
     from repro_torch.kernels.fused_update import secular_postpass_cuda
     from repro_torch.kernels import resident_merge as rmod
     from repro_torch.kernels.resident_merge import resident_merge_cuda
@@ -377,7 +412,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all(["secular_roots", "fused_update",
                              "resident_merge", "sturm_count", "zhat",
-                             "boundary_update", "sterf"])
+                             "boundary_update", "sterf", "deflate_chain"])
     build_s = time.perf_counter() - t0
     print(f"[1 device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernels built in {build_s:.1f} s")
@@ -813,6 +848,135 @@ def main() -> int:
           f"{int(q_steps[0])} rotations x that = {ql_chain['bound_ms']:.1f} "
           f"ms ({smi})")
 
+    # The deflation chain (csrc/deflate_chain.cu) against the plain chain
+    # run on the card (torch.hypot is CUDA's hypot there), bit for bit on
+    # d, z, R and the mask, in float64 and float32, on real merge lanes:
+    # the chain inputs of card solves, recorded by a spy on
+    # merge._deflate_level -- the K = 2048 level of a B = 32 x 4000 batch
+    # (W = 64; return_boundary=True on a padded n, so r = 3) and the
+    # K = 16384 level of an n = 16000 solve (W = 1, r = 3), glued
+    # Wilkinson and uniform; R = I on 8 lanes of the glued K = 512 level
+    # (r = K = 512, the rows of the lazy and full baselines); and the edge
+    # cases of tests/test_torch_deflate_chain.py.  Timed beside the plain
+    # chain and the parallel head the kernel replaced on the card
+    # (merge._deflate_head: a candidate chain, a post-check, two host
+    # syncs); one run each of those.
+    def chain_inputs(fn):
+        got = {}
+        real = mrg._deflate_level
+
+        def spy(d, z, R, small, tol, *, budget):
+            got[d.shape[1]] = (d, z, R, small, tol)
+            return real(d, z, R, small, tol, budget=budget)
+        mrg._deflate_level = spy
+        try:
+            fn()
+        finally:
+            mrg._deflate_level = real
+        return got
+
+    def same_bits(a, b):
+        if a.dtype == torch.bool:
+            return bool(torch.equal(a, b))
+        view = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return bool(torch.equal(a.view(view), b.view(view)))
+
+    edge_lanes = (
+        ("missed rotation", [0, 0, 0.01, 0.02, 0.03, 1.0],
+         [1, 0.01, 0.01, 0.01, 0.01, 0.01], [0] * 6, 1e-3),
+        ("K=2", [1.0, 1.0], [0.6, 0.8], [0, 0], 1e-12),
+        ("all poles small", np.linspace(0, 1, 40), np.zeros(40), [1] * 40,
+         1e-3),
+        ("small first pole", [0.5, 0.5, 0.5, 0.7], [0, 0.6, 0.8, 0.1],
+         [1, 0, 0, 0], 1e-6),
+        ("tau == 0 pair", [1.0, 1.0, 1.0, 2.0], [0, 0, 0.5, 0.5], [0] * 4,
+         1e-6))
+    chain_cases = {}
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).replace("torch.", "")
+        cases = []
+        for fam in ("glued_wilkinson", "uniform"):
+            D, E = make_family_batch(fam, 4000, 32, seed0=400)
+            lv = chain_inputs(lambda: eigvalsh_tridiagonal_batch(
+                D, E, return_boundary=True, dtype=dtype))
+            cases.append((f"{fam} W=64 r=3 K=2048", lv[2048]))
+            if fam == "glued_wilkinson":
+                d5, z5, _, s5, t5 = (x[:8] for x in lv[512])
+                eye = torch.eye(512, dtype=dtype, device=dev).expand(
+                    8, 512, 512).contiguous()
+                r_is_k = (f"{fam} W=8 r=K=512", (d5, z5, eye, s5, t5))
+            d1, e1 = make_family(fam, 16000, seed=16)
+            lv = chain_inputs(lambda: eigvalsh_tridiagonal_br(
+                d1, e1, return_boundary=True, dtype=dtype))
+            cases.append((f"{fam} W=1 r=3 K=16384", lv[16384]))
+        cases.append(r_is_k)
+        for name, d, z, small, tol in edge_lanes:
+            t = lambda a: torch.tensor(  # noqa: E731
+                np.asarray([a], dtype=float), dtype=dtype, device=dev)
+            cases.append((f"edge: {name}", (
+                t(d), t(z), torch.randn(1, 3, len(d), dtype=dtype,
+                                        device=dev),
+                torch.tensor([small], dtype=torch.bool, device=dev),
+                t(tol))))
+        for label, args in cases:
+            run_k = lambda: deflate_chain_cuda(*args)  # noqa: E731
+            got = run_k()
+            want, p_ms = _cuda_once(torch, lambda: mrg._close_pole_scan(
+                *args))
+            same = all(same_bits(a, b) for a, b in zip(got, want))
+            err = max(float((a - b).abs().max()) for a, b in zip(got[:3],
+                                                                 want[:3]))
+            k_ms = _cuda_ms(torch, run_k)
+            small_np = args[3].cpu().numpy()
+            defl_np = got[3].cpu().numpy()
+            rot = (defl_np & ~small_np).sum(axis=1)
+            steps = _window_steps(small_np, defl_np)
+            W, r, K = args[2].shape
+            head = ""
+            if not label.startswith("edge"):
+                _, h_ms = _cuda_once(torch, lambda: mrg._deflate_head(
+                    *args, budget=mrg.DEFAULT_DEFLATE_BUDGET))
+                head = f" parallel head (replaced) {h_ms:.3f} ms"
+            print(f"[2 kernel] deflate_chain {tag} {label}: bitwise {same} "
+                  f"(max_abs_err {err:.3e}); kernel {k_ms:.3f} ms plain "
+                  f"chain {p_ms:.3f} ms{head}; rotations of the longest "
+                  f"lane {int(rot.max())}, of all {int(rot.sum())}; "
+                  f"dependent steps of the longest lane {int(steps.max())} "
+                  f"(K={K})")
+            if not same:
+                raise AssertionError(f"deflate_chain {tag} {label} differs "
+                                     f"from the plain chain")
+            if tag == "float64" and not label.startswith("edge"):
+                chain_cases[label] = dict(
+                    ms=k_ms, plain_ms=p_ms, head_ms=h_ms, max_abs_err=err,
+                    steps=int(steps.max()), rotations=int(rot.max()),
+                    nbytes=W * K * (4 * 8 + 2) + 2 * W * r * K * 8 + 8 * W,
+                    args=args)
+
+    # The chain's latency floor: one warp runs the kernel's window step
+    # back to back on the first 32 poles of a glued lane, in registers;
+    # the longest lane's dependent steps times that bound a level.
+    d_, z_, _, s_, t_ = chain_cases["glued_wilkinson W=64 r=3 K=2048"]["args"]
+    reps = 65536
+    run_c = lambda: dck.chain_probe_cuda(  # noqa: E731
+        d_[0], z_[0], s_[0], float(t_[0]), reps)
+    c_cycles, c_fires = run_c()
+    probe_ms = _cuda_ms(torch, run_c, 3)
+    step_ns = probe_ms * 1e6 / reps
+    step_cycles = int(c_cycles) / reps
+    for rec in chain_cases.values():
+        rec.pop("args")
+        rec["chain_bound_ms"] = rec["steps"] * step_ns / 1e6
+        rec["bytes_bound_ms"] = rec["nbytes"] / PEAK_BYTES * 1e3
+    print(f"[2 chain] deflate_chain: one window step on one warp, operands "
+          f"in registers: {step_ns:.1f} ns and {step_cycles:.1f} SM cycles "
+          f"({int(c_fires)} of {reps} steps rotated); chain bound = "
+          f"dependent steps of the longest lane x that: " + "; ".join(
+              f"{k} {v['steps']} steps, {v['chain_bound_ms']:.4f} ms "
+              f"(bytes {v['bytes_bound_ms']:.4f} ms) against the kernel's "
+              f"{v['ms']:.4f} ms" for k, v in chain_cases.items())
+          + f" ({smi})")
+
     # ---- phase 3: the main path -----------------------------------------
     # scipy references run in worker processes while the card works;
     # they are collected before the timings of phase 5.
@@ -832,7 +996,7 @@ def main() -> int:
                      pool.submit(_reference, d, e, lam, 8 * scale)))
 
     kernels = (secular_solve_cuda, secular_postpass_cuda,
-               resident_merge_cuda)
+               resident_merge_cuda, deflate_chain_cuda)
     sturm_kernels = (sturm_count_cuda, sturm_count_newton_cuda)
     try:
         for k in kernels + sturm_kernels:
@@ -851,12 +1015,16 @@ def main() -> int:
         per_batch = [(a - b) / len(batches)
                      for a, b in zip(launches, per_solve)]
         print(f"[3 main] launches (secular_roots, fused_update, "
-              f"resident_merge): n=16384 solve {per_solve}, B=64 x 4096 "
-              f"batch (mean of {len(batches)}) {per_batch}, total "
-              f"{launches}")
+              f"resident_merge, deflate_chain): n=16384 solve {per_solve}, "
+              f"B=64 x 4096 batch (mean of {len(batches)}) {per_batch}, "
+              f"total {launches}")
         if min(launches) == 0:
             raise AssertionError(f"a kernel of the main path never "
                                  f"launched: {launches}")
+        if per_solve[3] != 9 or per_batch[3] != 7:
+            raise AssertionError(f"deflate_chain launched {per_solve[3]} "
+                                 f"times per n=16384 solve (9 levels) and "
+                                 f"{per_batch[3]} per batch (7 levels)")
 
         # ---- phase 4: invariants (the references keep running) ---------
         D, E = make_family_batch("uniform", 1000, 4, seed0=7)
@@ -867,8 +1035,11 @@ def main() -> int:
         bar = 64 * eps * max(1.0, max(_tinf(D[b], E[b]) for b in range(4)))
         if diff > bar:
             raise AssertionError(f"batched vs looped differ by {diff:.3e}")
+        bitwise = bool(torch.equal(bat, loop))
         print(f"[4 invariant] batched vs looped (4 x n=1000): max diff "
-              f"{diff:.3e}, bitwise {bool(torch.equal(bat, loop))}")
+              f"{diff:.3e}, bitwise {bitwise}")
+        if not bitwise:
+            raise AssertionError("batched vs looped: not the same bits")
         d, e = make_family("normal", 1000, seed=8)
         res = eigvalsh_tridiagonal_br(d, e, return_boundary=True)
         w_ref, V = np.linalg.eigh(np.diag(d) + np.diag(e, 1)
@@ -935,8 +1106,9 @@ def main() -> int:
         print(f"[6 sturm] launches (sturm_count, sturm_count_newton): "
               f"per n=16384 range solve (k=64) {per_range}; per certify "
               f"sweep {per_cert}; phase total {sturm_launches}; merge "
-              f"kernels (secular_roots, fused_update, resident_merge) in "
-              f"the phase (mixed and certified trees) {tree_launches}")
+              f"kernels (secular_roots, fused_update, resident_merge, "
+              f"deflate_chain) in the phase (mixed and certified trees) "
+              f"{tree_launches}")
         if min(sturm_launches) == 0:
             raise AssertionError(f"a Sturm kernel never launched on its "
                                  f"path: {sturm_launches}")
@@ -1215,6 +1387,11 @@ def main() -> int:
     print(f"[5 time] eigvalsh_tridiagonal n=16384 uniform f64: {t16:.1f} ms;"
           f" eigvalsh_tridiagonal_batch B=64 n=4096 uniform f64: "
           f"{t64:.1f} ms (median of 5, {smi})")
+    tg = _cuda_ms(torch, lambda: eigvalsh_tridiagonal(Dg[0], Eg[0]))
+    tg64 = _cuda_ms(torch, lambda: eigvalsh_tridiagonal_batch(Dg, Eg))
+    print(f"[5 time] eigvalsh_tridiagonal n=4096 glued_wilkinson f64: "
+          f"{tg:.1f} ms; eigvalsh_tridiagonal_batch B=64 n=4096 "
+          f"glued_wilkinson f64: {tg64:.1f} ms (median of 5, {smi})")
     sturm_paths = {
         "range bottom 64, n=16384": lambda: eigvalsh_tridiagonal_range(
             d16, e16, il=0, iu=63),
@@ -1240,6 +1417,8 @@ def main() -> int:
              lambda: eigvalsh_tridiagonal(d16, e16))
     _profile(torch, "B=64 n=4096 uniform batch",
              lambda: eigvalsh_tridiagonal_batch(Du, Eu))
+    _profile(torch, "n=4096 glued_wilkinson solve",
+             lambda: eigvalsh_tridiagonal(Dg[0], Eg[0]))
     _profile(torch, "range bottom 64, n=16384", sturm_paths[
         "range bottom 64, n=16384"])
     _profile(torch, "mixed, n=16384", sturm_paths["mixed, n=16384"])
@@ -1364,6 +1543,31 @@ def main() -> int:
         "chain_ns_per_rotation": ql_chain["ns_per_rotation"],
         "chain_cycles_per_rotation": ql_chain["cycles_per_rotation"],
         "sterf_n16384_ms": big["sterf"]["ms"] if n_ql == 16384 else None})
+    dc = chain_cases["glued_wilkinson W=64 r=3 K=2048"]
+    du = chain_cases["uniform W=1 r=3 K=16384"]
+    for rec in (dc, du):
+        rec["bound"] = (max(rec["chain_bound_ms"], rec["bytes_bound_ms"]),
+                        "operations" if rec["chain_bound_ms"]
+                        >= rec["bytes_bound_ms"] else "bytes")
+    out.append({
+        "name": "deflate_chain", "route": "cuda",
+        "source": "src/repro_torch/csrc/deflate_chain.cu",
+        "replaces": "src/repro/core/merge.py:69/:186 (XLA scan, not Pallas)",
+        "launches": int(launches[3]), "max_abs_err": dc["max_abs_err"],
+        "ms": dc["ms"], "plain_ms": dc["plain_ms"],
+        "bound_ms": dc["bound"][0], "bound_by": dc["bound"][1],
+        "library_ms": None,
+        "shape": "W=64 r=3 K=2048 glued_wilkinson f64 (dependent steps of "
+                 "the longest lane x the chain probe's step)",
+        "head_ms": dc["head_ms"], "steps": dc["steps"],
+        "rotations": dc["rotations"], "chain_ns_per_step": step_ns,
+        "chain_cycles_per_step": step_cycles,
+        "chain_bound_ms": dc["chain_bound_ms"],
+        "bytes_bound_ms": dc["bytes_bound_ms"],
+        "u16_shape": "W=1 r=3 K=16384 uniform f64", "u16_ms": du["ms"],
+        "u16_plain_ms": du["plain_ms"], "u16_head_ms": du["head_ms"],
+        "u16_bound_ms": du["bound"][0], "u16_steps": du["steps"],
+        "u16_max_abs_err": du["max_abs_err"]})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

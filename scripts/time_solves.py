@@ -1,0 +1,134 @@
+#!/usr/bin/env python3
+"""Time the port's end-to-end solves on one CUDA card, and the share of
+each solve that its merge levels' deflation chain takes.
+
+    python3 scripts/time_solves.py [--src DIR] [--label NAME] [--mixed]
+
+``--src`` imports ``repro_torch`` from another checkout's ``src`` (for
+instance an unpacked parent commit: ``git archive <commit> src | tar -x
+-C build/parent``), so that two versions are timed in turns inside one
+call on one card (parent, change, change, parent); each builds its own
+kernels under its own checkout.
+
+Solves, float64, inputs as ``chip_smoke.py`` makes them:
+``eigvalsh_tridiagonal`` at n = 16384 (uniform, seed 0) and at n = 4096
+(the first glued-Wilkinson problem of the batch), and
+``eigvalsh_tridiagonal_batch`` at B = 64 x 4096 (uniform and glued
+Wilkinson, seed0 100): CUDA events, median of 5 after a warm-up.  Then
+one more run of each with ``merge._deflate_level`` timed on the host
+clock between two ``torch.cuda.synchronize()`` calls: the deflation
+chain's time per level (the kernel's launch, or the parent's Python
+chain with its host syncs) beside the solve's wall time in that run.
+``--mixed`` also times one run of ``eigvalsh_tridiagonal`` of the
+glued-Wilkinson B = 64 x 4096 batch with ``precision="mixed"``, whose
+ladder re-solves every problem natively one at a time (minutes on a
+version without the chain kernel).
+Every line printed is one JSON object with the card's name and power
+limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def card():
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps=5):
+    """Median of ``reps`` CUDA-event times of fn() after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--mixed", action="store_true")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("time_solves: no CUDA device visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(args.src))
+    from repro_torch.core import (eigvalsh_tridiagonal,
+                                  eigvalsh_tridiagonal_batch, make_family,
+                                  make_family_batch)
+    from repro_torch.core import merge as mrg
+
+    smi = card()
+
+    def emit(**kw):
+        print(json.dumps(dict(kw, label=args.label, card=smi)), flush=True)
+
+    d16, e16 = make_family("uniform", 16384, seed=0)
+    Du, Eu = make_family_batch("uniform", 4096, 64, seed0=100)
+    Dg, Eg = make_family_batch("glued_wilkinson", 4096, 64, seed0=100)
+    solves = {
+        "n=16384 uniform": lambda: eigvalsh_tridiagonal(d16, e16),
+        "n=4096 glued_wilkinson": lambda: eigvalsh_tridiagonal(Dg[0], Eg[0]),
+        "B=64 x 4096 uniform": lambda: eigvalsh_tridiagonal_batch(Du, Eu),
+        "B=64 x 4096 glued_wilkinson": lambda: eigvalsh_tridiagonal_batch(
+            Dg, Eg)}
+    for name, fn in solves.items():
+        ms = median_ms(fn)
+        levels = []
+        real = mrg._deflate_level
+
+        def timed(d, z, R, small, tol, *, budget):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(d, z, R, small, tol, budget=budget)
+            torch.cuda.synchronize()
+            levels.append((d.shape[1], (time.perf_counter() - t0) * 1e3))
+            return out
+
+        mrg._deflate_level = timed
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            mrg._deflate_level = real
+        emit(solve=name, ms=ms, timed_run_wall_ms=wall,
+             chain_ms=sum(t for _, t in levels),
+             chain_ms_per_level={str(K): t for K, t in levels})
+    if args.mixed:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eigvalsh_tridiagonal(Dg, Eg, precision="mixed")
+        torch.cuda.synchronize()
+        emit(solve="B=64 x 4096 glued_wilkinson precision=mixed (one run)",
+             ms=(time.perf_counter() - t0) * 1e3)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

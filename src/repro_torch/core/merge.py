@@ -11,18 +11,21 @@ rows:
     R_new  = R_child @ S_v  via selected-row streaming  (Lemma 3.2)
 
 The merge head (z assembly, pole sort, DLAED2 deflation, compaction) is
-plain tensor code vectorised over the W lanes; the secular solve and the
-post-pass go through ``repro_torch.kernels.ops``, i.e. the CUDA kernels
-for tensors on the card.
+plain tensor code vectorised over the W lanes; the deflation chain, the
+secular solve and the post-pass go through ``repro_torch.kernels.ops``,
+i.e. the CUDA kernels for tensors on the card.
 
-Where the JAX package stays inside one traced program, the port makes two
-host decisions per level (two device-to-host syncs, both in
-:func:`_deflate_level`): ``int(cmax)``, the level's largest count of
-close-pole rotation candidates, which sets the length of the restricted
-rotation chain (replacing the ``lax.switch`` over budget tiers), and
-``bool(missed)``, the exact post-check that routes the level to the
-sequential chain (replacing the ``lax.cond``).  The chains themselves are
-Python loops over steps, each step vectorised over the W lanes.
+On the card the close-pole chain of a whole level is one kernel launch
+(``csrc/deflate_chain.cu``) with no host decision: the level never waits
+for the device.  On the CPU :func:`_deflate_level` runs the parallel
+head of the JAX package, :func:`_deflate_head`, with two host decisions
+in place of its ``lax.switch`` and ``lax.cond``: ``int(cmax)``, the
+level's largest count of close-pole rotation candidates, which sets the
+length of the restricted rotation chain, and ``bool(missed)``, the exact
+post-check that routes the level to the sequential chain.  Those chains
+are Python loops over steps, each step vectorised over the W lanes; the
+sequential one, :func:`_close_pole_scan`, is the kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -213,12 +216,25 @@ def _deflate_missed(d0, z0, d1, z1, small, tol, prevkept, cand):
 def _deflate_level(d, z, R, small, tol, *, budget: int):
     """Close-pole deflation for one whole level: (W, K) nodes at once.
 
-    Parallel head: detect, compact, and run the exact chain over the
-    candidates only, for ``cmax`` steps (the level's largest candidate
-    count; the JAX package pads the chain to a budget tier >= cmax with
-    no-op steps).  If the post-check finds a missed rotation the level
-    runs the sequential chain instead.  Two host syncs: ``int(cmax)`` and
-    ``bool(missed)``.
+    On the card: one launch of the chain kernel
+    (``ops.deflate_chain_batched``), no host sync, and ``budget`` is a
+    no-op -- the kernel's window scan is the sequential chain, so there
+    is nothing to budget (the JAX package calls its budget "a speed knob,
+    never a semantics knob").  On the CPU: :func:`_deflate_head`.
+    """
+    if d.is_cuda:
+        return _ops.deflate_chain_batched(d, z, R, small, tol)
+    return _deflate_head(d, z, R, small, tol, budget=budget)
+
+
+def _deflate_head(d, z, R, small, tol, *, budget: int):
+    """The parallel head, on tensors of any device: detect, compact, and
+    run the exact chain over the candidates only, for ``cmax`` steps (the
+    level's largest candidate count; the JAX package pads the chain to a
+    budget tier >= cmax with no-op steps).  If the post-check finds a
+    missed rotation the level runs the sequential chain instead.  Two host
+    syncs: ``int(cmax)`` and ``bool(missed)``.  ``budget <= 0`` (or >= K)
+    runs the sequential chain directly.
     """
     W, K = d.shape
     if budget <= 0 or budget >= K:
@@ -250,6 +266,20 @@ def default_resident_threshold(device) -> int:
                ["resident_threshold"])
 
 
+def _sum_rows(x):
+    """Row sums of x (W, K) in a fixed pairwise order: each pass adds the
+    second half of the columns to the first (an odd last column rides
+    along), so a row's sum depends on that row alone.  ``torch.sum`` on a
+    CUDA tensor splits a row differently as the number of rows changes,
+    which made a batched solve differ from the looped one in the last
+    bit."""
+    while x.shape[1] > 1:
+        h = x.shape[1] // 2
+        pair = x[:, :h] + x[:, h:2 * h]
+        x = torch.cat([pair, x[:, 2 * h:]], dim=1) if x.shape[1] % 2 else pair
+    return x[:, 0]
+
+
 def _merge_assemble(dL, dR, zL, zR, R, rho, sgn, tol_factor):
     """Merge prelude over W lanes: z assembly, pole sort, z-small deflation.
 
@@ -259,7 +289,7 @@ def _merge_assemble(dL, dR, zL, zR, R, rho, sgn, tol_factor):
     """
     d0 = torch.cat([dL, dR], dim=1)
     z0 = torch.cat([zL, sgn[:, None] * zR], dim=1)
-    nrm2 = torch.sum(z0 * z0, dim=1)
+    nrm2 = _sum_rows(z0 * z0)
     nrm = torch.sqrt(nrm2)
     z = z0 / torch.where(nrm > 0.0, nrm, torch.ones_like(nrm))[:, None]
     rho_eff = rho * nrm2   # rho * z0 z0^T == rho_eff * z z^T, ||z|| = 1

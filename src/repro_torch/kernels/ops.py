@@ -4,7 +4,8 @@ Dispatch goes by the device of the tensors, never by a process-wide
 switch:
 
   * a CPU tensor runs the plain torch version (``repro_torch.core.secular``
-    for the merge kernels, ``repro_torch.core.bisect`` for the Sturm counts,
+    for the merge kernels, ``repro_torch.core.merge`` for the deflation
+    chain, ``repro_torch.core.bisect`` for the Sturm counts,
     ``repro_torch.core.sterf`` for the QL iteration);
     ``dense=`` picks its dense (one (K, K) tile) or chunked form, as in the
     JAX package's size-adaptive level dispatch;
@@ -24,6 +25,7 @@ from repro_torch.core import secular as _sec
 from repro_torch.core import sterf as _sterf
 from repro_torch.core.secular import DEFAULT_NITER, DEFAULT_NITER_F32
 from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
+from repro_torch.kernels.deflate_chain import deflate_chain_cuda
 from repro_torch.kernels.fused_update import secular_postpass_cuda
 from repro_torch.kernels.resident_merge import resident_merge_cuda
 from repro_torch.kernels.secular_roots import secular_solve_cuda
@@ -102,6 +104,18 @@ def secular_merge_resident_batched(d, z, R, rho, kprime, *,
     return _sec.secular_merge_resident_batched(d, z, R, rho, kprime,
                                                niter=niter,
                                                use_zhat=use_zhat)
+
+
+def deflate_chain_batched(d, z, R, small, tol):
+    """The DLAED2 close-pole chain of W merge lanes: d, z, small (W, K);
+    R (W, r, K), any r; tol (W,).  One launch on the card.  Returns new
+    (d, z, R, deflated (W, K) bool)."""
+    if _on_card(d):
+        return deflate_chain_cuda(d.contiguous(), z.contiguous(),
+                                  R.contiguous(), small.contiguous(),
+                                  tol.contiguous())
+    from repro_torch.core import merge as _merge  # deferred: merge imports ops
+    return _merge._close_pole_scan(d, z, R, small, tol)
 
 
 def sturm_count_batched(d, e2, shifts, pivmin):

@@ -15,7 +15,10 @@
     between math libraries by an ulp, which moves QL's trajectory by
     about the algorithm's own error); the root solve and the resident
     merge also batched == looped, and equal bit for bit whatever launch
-    shape (cluster and CTA size) a batch gives them.
+    shape (cluster and CTA size) a batch gives them; the deflation chain
+    equal to the plain chain run on the card bit for bit, once per level
+    and with no host sync; and a batched solve equal to the looped one bit
+    for bit, with the first batch-dependent tensor named if not.
 """
 
 import math
@@ -28,12 +31,18 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import eigvalsh_tridiagonal, make_family  # noqa: E402
+from repro_torch.core import (eigvalsh_tridiagonal,  # noqa: E402
+                              eigvalsh_tridiagonal_batch, make_family,
+                              make_family_batch)
+from repro_torch.core import br_dc as tbr  # noqa: E402
+from repro_torch.core import merge as tmerge  # noqa: E402
 from repro_torch.core import secular as tsec  # noqa: E402
 from repro_torch.core import sterf as tsterf  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.boundary_update import (  # noqa: E402
     boundary_rows_update_cuda)
+from repro_torch.kernels import deflate_chain as dck  # noqa: E402
+from repro_torch.kernels.deflate_chain import deflate_chain_cuda  # noqa: E402
 from repro_torch.kernels.fused_update import secular_postpass_cuda  # noqa: E402
 from repro_torch.kernels.resident_merge import resident_merge_cuda  # noqa: E402
 from repro_torch.kernels.secular_roots import secular_solve_cuda  # noqa: E402
@@ -56,6 +65,7 @@ def test_import_loads_neither_jax_nor_repro_and_needs_no_nvcc():
         "import repro_torch.kernels.sturm_count, repro_torch.kernels.zhat\n"
         "import repro_torch.kernels.boundary_update\n"
         "import repro_torch.kernels.sterf, repro_torch.core.baselines\n"
+        "import repro_torch.kernels.deflate_chain\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -581,3 +591,257 @@ def test_sterf_chain_probe_is_the_kernels_rotation(cuda_device):
     pd, pe, rot, cycles, ok = qlk.chain_probe_cuda(dt, et, 1000)
     assert int(rot) == 1000 * U and int(cycles) > 0 and int(ok) == 1
     assert bool(torch.isfinite(pd).all() and torch.isfinite(pe).all())
+
+
+# ---- the deflation chain ---------------------------------------------------
+
+def _chain_levels(family, n, dtype=torch.float64):
+    """Every level's chain inputs (d, z, R, small, tol) of the port's plain
+    CPU solve of ``family`` at n (seed 0, leaf 32)."""
+    got = []
+    real = tmerge._deflate_level
+
+    def spy(d, z, R, small, tol, *, budget):
+        got.append((d, z, R, small, tol))
+        return real(d, z, R, small, tol, budget=budget)
+
+    d, e = make_family(family, n, seed=0)
+    tmerge._deflate_level = spy
+    try:
+        eigvalsh_tridiagonal_batch(d[None], e[None], leaf=32, dtype=dtype,
+                                   device="cpu")
+    finally:
+        tmerge._deflate_level = real
+    return got
+
+
+def _chain_edges(dtype):
+    """One-lane chains at the edges (see tests/test_torch_deflate_chain.py):
+    a rotation the CPU's parallel head misses, K = 2, all poles small, a
+    small first pole, a tau == 0 pair."""
+    cases = [([0, 0, 0.01, 0.02, 0.03, 1.0], [1, 0.01, 0.01, 0.01, 0.01, 0.01],
+              [0] * 6, 1e-3),
+             ([1.0, 1.0], [0.6, 0.8], [0, 0], 1e-12),
+             (np.linspace(0, 1, 40), np.zeros(40), [1] * 40, 1e-3),
+             ([0.5, 0.5, 0.5, 0.7], [0, 0.6, 0.8, 0.1], [1, 0, 0, 0], 1e-6),
+             ([1.0, 1.0, 1.0, 2.0], [0, 0, 0.5, 0.5], [0] * 4, 1e-6)]
+    out = []
+    for k, (d, z, small, tol) in enumerate(cases):
+        K = len(d)
+        R = torch.tensor(np.random.default_rng(k).standard_normal((1, 3, K)),
+                         dtype=dtype)
+        out.append((torch.tensor([d], dtype=dtype),
+                    torch.tensor([z], dtype=dtype), R,
+                    torch.tensor([small], dtype=torch.bool),
+                    torch.tensor([tol], dtype=dtype)))
+    return out
+
+
+def _same_bits(a, b):
+    """Equal bit for bit (a float's sign of zero included)."""
+    view = {torch.float64: torch.int64, torch.float32: torch.int32}.get(
+        a.dtype)
+    if view is None:
+        return torch.equal(a, b)
+    return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+
+
+def test_cpu_tensors_take_the_plain_chain():
+    lv = _chain_levels("glued_wilkinson", 256)[1]
+    before = deflate_chain_cuda.launches
+    got = ops.deflate_chain_batched(*lv)
+    for a, b in zip(got, tmerge._close_pole_scan(*lv)):
+        assert _same_bits(a, b)
+    assert (got[3] & ~lv[3]).any()                 # rotations fired
+    assert deflate_chain_cuda.launches == before
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        deflate_chain_cuda(*lv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_deflate_chain_matches_plain_chain_on_card(cuda_device, dtype):
+    """The kernel against the plain chain run on the card (torch.hypot is
+    CUDA's hypot there), bit for bit on d, z, R and the mask: every level
+    of a glued-Wilkinson and a uniform n = 1024 solve, the top glued level
+    with R = I (r = K = 1024, the lazy and full baselines' rows), and the
+    edge cases."""
+    glued = _chain_levels("glued_wilkinson", 1024, dtype)
+    cases = glued + _chain_levels("uniform", 1024, dtype) + _chain_edges(
+        dtype)
+    d, z, _, small, tol = glued[-1]
+    cases.append((d, z, torch.eye(d.shape[1], dtype=dtype)[None], small, tol))
+    rotations = 0
+    for case in cases:
+        on = [t.to(cuda_device) for t in case]
+        before = deflate_chain_cuda.launches
+        got = deflate_chain_cuda(*on)
+        assert deflate_chain_cuda.launches == before + 1
+        want = tmerge._close_pole_scan(*on)
+        for name, a, b in zip("d z R deflated".split(), got, want):
+            assert _same_bits(a, b), (name, tuple(on[0].shape),
+                                      tuple(on[2].shape))
+        rotations += int((got[3] & ~on[3]).sum())
+    assert rotations > 50
+
+
+@pytest.mark.gpu
+def test_deflate_chain_batched_equals_one_lane_bitwise(cuda_device):
+    for lv in _chain_levels("glued_wilkinson", 1024):
+        on = [t.to(cuda_device) for t in lv]
+        full = deflate_chain_cuda(*on)
+        for w in range(on[0].shape[0]):
+            one = deflate_chain_cuda(*(t[w:w + 1] for t in on))
+            for a, b in zip(one, full):
+                assert _same_bits(a[0], b[w])
+
+
+@pytest.mark.gpu
+def test_deflate_chain_once_per_level_and_no_host_sync(cuda_device):
+    """One launch per merge level of a solve, ``deflate_budget`` a no-op
+    on the card, and no device-to-host sync in ``_deflate_level`` on CUDA
+    tensors (torch's sync debug mode raises on one)."""
+    d, e = make_family("glued_wilkinson", 4096, seed=0)
+    before = deflate_chain_cuda.launches
+    lam = eigvalsh_tridiagonal(d, e)
+    assert deflate_chain_cuda.launches - before == 7     # 4096 = 32 * 2^7
+    assert torch.equal(lam, eigvalsh_tridiagonal(d, e, deflate_budget=0))
+    on = [t.to(cuda_device) for t in _chain_levels("glued_wilkinson",
+                                                   1024)[2]]
+    want = tmerge._deflate_level(*on, budget=64)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tmerge._deflate_level(*on, budget=64)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    for a, b in zip(got, want):
+        assert _same_bits(a, b)
+
+
+@pytest.mark.gpu
+def test_merge_levels_make_no_host_sync_on_card(cuda_device, monkeypatch):
+    """Past the leaf solve, every merge level of a solve (head, chain,
+    root solve, resident merge, post-pass) runs without a device-to-host
+    sync: the condition for capturing a level in a CUDA graph.  The leaf's
+    batched torch.linalg.eigh runs with the check off."""
+    d, e = make_family("uniform", 16384, seed=0)
+    d_pad, e_pad, _, _ = tbr._pad_problem(
+        torch.tensor(d, device=cuda_device)[None],
+        torch.tensor(e, device=cuda_device)[None], 32)
+    kw = dict(leaf=32, chunk=256, niter=16, use_zhat=True,
+              return_boundary=False, tol_factor=8.0, stream_threshold=0,
+              deflate_budget=64, resident_threshold=2048)
+    want = tbr._br_dc_padded_batch(d_pad, e_pad, None, **kw)
+    leaf_solve = tbr._leaf_solve
+
+    def leaf_unchecked(*a, **k):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return leaf_solve(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(tbr, "_leaf_solve", leaf_unchecked)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tbr._br_dc_padded_batch(d_pad, e_pad, None, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    assert _same_bits(got[0], want[0])
+
+
+@pytest.mark.gpu
+def test_deflate_chain_probe_runs_the_window_step(cuda_device):
+    d, z, _, small, tol = (t.to(cuda_device)
+                           for t in _chain_levels("glued_wilkinson", 1024)[0])
+    cycles, fires = dck.chain_probe_cuda(d[0], z[0], small[0],
+                                         float(tol[0]), 1000)
+    assert int(cycles) > 0 and 0 <= int(fires) <= 1000
+
+
+# ---- batched == looped through the whole solve ------------------------------
+
+def _spy_solve(monkeypatch, run):
+    """Run ``run()`` with every leaf solve's outputs and every level's merge
+    inputs, chain inputs and outputs and results recorded in call order:
+    [(stage, level, {name: tensor})]; the leaf's tensors lead with the
+    problem axis, the rest with the lane axis (problem-major)."""
+    log = []
+    level = [0]
+    leaf_solve, assemble = tbr._leaf_solve, tmerge._merge_assemble
+    deflate, merge_level = tmerge._deflate_level, tmerge.merge_level
+
+    def leaf_spy(*a, **k):
+        lam, rows = leaf_solve(*a, **k)
+        log.append(("leaf solve", -1, {"lam": lam, "rows": rows}))
+        return lam, rows
+
+    def assemble_spy(dL, dR, zL, zR, R, rho, sgn, tol_factor):
+        out = assemble(dL, dR, zL, zR, R, rho, sgn, tol_factor)
+        z0 = torch.cat([zL, sgn[:, None] * zR], dim=1)
+        log.append(("merge assemble", level[0], dict(
+            zip("d z R small tol rho_eff".split(), out),
+            torch_sum_z0sq=torch.sum(z0 * z0, dim=1))))
+        return out
+
+    def deflate_spy(*a, **k):
+        out = deflate(*a, **k)
+        log.append(("deflation chain", level[0],
+                    dict(zip("d z R deflated".split(), out))))
+        return out
+
+    def level_spy(lam_pairs, z_inner, R, rho, sgn, **kw):
+        log.append(("merge inputs", level[0], dict(
+            lam_pairs=lam_pairs, z_inner=z_inner, R=R, rho=rho, sgn=sgn)))
+        res = merge_level(lam_pairs, z_inner, R, rho, sgn, **kw)
+        log.append(("merge result", level[0], res._asdict()))
+        level[0] += 1
+        return res
+
+    with monkeypatch.context() as m:
+        m.setattr(tbr, "_leaf_solve", leaf_spy)
+        m.setattr(tmerge, "_merge_assemble", assemble_spy)
+        m.setattr(tmerge, "_deflate_level", deflate_spy)
+        m.setattr(tmerge, "merge_level", level_spy)
+        out = run()
+    return out, log
+
+
+@pytest.mark.gpu
+def test_batched_equals_looped_bitwise_on_card(cuda_device, monkeypatch):
+    """``chip_smoke.py`` phase 4's problems (uniform n = 1000, B = 4, seed0
+    = 7) as one batch and one at a time: every recorded tensor of problem
+    b in the batch has the bits of the looped solve's.  The one tensor
+    allowed to differ is ``torch.sum`` of the level's z0^2 (recorded, not
+    used): the library reduction the merge head no longer runs.  The first
+    tensor that differs is named, and every one is printed."""
+    D, E = make_family_batch("uniform", 1000, 4, seed0=7)
+    B = D.shape[0]
+    bat, blog = _spy_solve(monkeypatch, lambda: eigvalsh_tridiagonal_batch(
+        D, E).eigenvalues)
+    report = []
+    for b in range(B):
+        one, olog = _spy_solve(monkeypatch,
+                               lambda: eigvalsh_tridiagonal(D[b], E[b]))
+        assert [e[:2] for e in olog] == [e[:2] for e in blog]
+        for (stage, lvl, got), (_, _, want) in zip(blog, olog):
+            for name, t in got.items():
+                w = want[name]
+                lanes = w.shape[0]
+                part = t[b * lanes:(b + 1) * lanes]
+                if not _same_bits(part, w):
+                    diff = (float((part.double() - w.double()).abs().max())
+                            if part.is_floating_point() else None)
+                    report.append(f"problem {b}: {stage} level {lvl} {name} "
+                                  f"max diff {diff}")
+        if not _same_bits(bat[b], one):
+            report.append(f"problem {b}: eigenvalues max diff "
+                          f"{float((bat[b] - one).abs().max())}")
+    print("[batched vs looped] " + ("; ".join(report) if report else
+                                    "every recorded tensor bitwise equal"))
+    solve = [r for r in report if "torch_sum_z0sq" not in r]
+    assert not solve, f"first difference: {solve[0]}"

@@ -189,3 +189,25 @@ def test_more_rows_than_the_fused_kernels_take_run_two_pass():
     a = tmerge.merge_level(*ta, resident_threshold=1 << 20)
     b = tmerge.merge_level(*ta, fused=False)
     assert torch.equal(a.lam, b.lam) and torch.equal(a.rows, b.rows)
+
+
+@pytest.mark.parametrize("K", [1, 2, 7, 64, 84])
+def test_row_sums_depend_on_the_row_alone(K):
+    """The z norm's fixed-order sum: a row's bits do not depend on the rows
+    beside it (on the card ``torch.sum`` splits a row differently as the
+    row count changes), and it is a sum to rounding."""
+    # Entries over 17 decades: the order of the additions shows in the bits.
+    x = torch.from_numpy(10.0 ** np.random.default_rng(0).uniform(
+        -17, 0, (5, K)))
+    got = tmerge._sum_rows(x)
+    for i in range(5):
+        assert torch.equal(tmerge._sum_rows(x[i:i + 1])[0], got[i])
+    torch.testing.assert_close(got, x.sum(dim=1), rtol=1e-14, atol=0)
+    if K == 7:      # halves added, the odd last column riding along
+        a = x[0]
+        want = ((a[0] + a[3]) + (a[2] + a[5])) + ((a[1] + a[4]) + a[6])
+        assert torch.equal(got[0], want)
+        left_to_right = a[0]
+        for v in a[1:]:
+            left_to_right = left_to_right + v
+        assert not torch.equal(got[0], left_to_right)   # the order shows
