@@ -25,7 +25,14 @@ per source, in parallel), then:
      sizes, tiles and paths, shared memory, registers and spills, and the
      DMMA instructions of the row update's tensor-core path) and times the
      merge kernels' library yardstick, torch.linalg.eigvalsh of the
-     pre-formed diag(d) + rho z z^T, at the kernel table's shapes; holds
+     pre-formed diag(d) + rho z z^T, at the kernel table's shapes; prints
+     the team, block and tile of the weight kernel (zhat, and the fused
+     post-pass's pass A) and of the post-pass's pass B, holds zhat to its
+     plain version at K = 16384 too and the post-pass at the levels the
+     main path gives it (r = 2 at W = 4 x K = 4096 and W = 2 x K = 8192),
+     and reads the FP64-pipe and all instructions of the hot loops of
+     zhat, the post-pass and the Sturm counts from their SASS (times at
+     the SM clock the Sturm chain probe measures); holds
      the deflation chain kernel to the plain chain run on the card, bit
      for bit, on real merge lanes (glued Wilkinson and uniform, W = 64 x
      K = 2048 and W = 1 x K = 16384, r = 3; r = K = 512) and the edge
@@ -237,9 +244,9 @@ def _dense_y(torch, d, w, origin, tau, kprime):
 
 
 def _zhat_ops(kp):
-    """Per (active pole, active root) pair: three subtractions, two logs
-    and two sums; a log counts as one operation."""
-    return float((kp.astype("float64") ** 2).sum()) * 7
+    """Per (active pole, active root) pair of the ratio product: three
+    subtractions, one division and one multiplication."""
+    return float((kp.astype("float64") ** 2).sum()) * 5
 
 
 def _boundary_ops(kp, r):
@@ -343,20 +350,25 @@ def _regs(log, key):
     return hits[0]
 
 
-def _sass_count(lib, kernel, opcode):
-    """How many ``opcode`` instructions the SASS of the functions of
-    ``lib`` whose name contains ``kernel`` holds (cuobjdump), or None
-    where the toolkit has no cuobjdump."""
+def _constants(path, names):
+    """{name: value} of the ``constexpr int NAME = value;`` lines of a
+    CUDA source: the launch design the kernel is compiled with."""
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300).stdout
-    return sum(len(re.findall(rf"\b{opcode}\b", fn))
-               for fn in re.split(r"\n\s*Function : ", sass)[1:]
-               if kernel in fn.split("\n", 1)[0])
+    text = open(path).read()
+    return {n: int(re.search(rf"constexpr int {n} = (\d+);", text).group(1))
+            for n in names}
+
+
+def _instr_bounds_ms(counts, items, sm_hz, sms):
+    """(FP64-pipe bound, issue-slot time) in ms of ``items`` items of
+    ``counts`` = (FP64-pipe instructions, all instructions) each: an SM
+    runs two FP64 warp instructions (64 lanes) and issues four warp
+    instructions (128 lanes) a cycle, at the SM clock ``sm_hz``.  (None,
+    None) where the SASS was not read."""
+    if not counts:
+        return None, None
+    return tuple(c * items / (sms * lanes * sm_hz) * 1e3
+                 for c, lanes in zip(counts, (64, 128)))
 
 
 def main() -> int:
@@ -365,10 +377,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
     import multiprocessing as mp
     from concurrent.futures import ProcessPoolExecutor
 
     import numpy as np
+    import sass
 
     from repro_torch.core import (FAMILIES, SOLVE_COUNTER, SolveRequest,
                                   eigvalsh_tridiagonal,
@@ -489,6 +503,37 @@ def main() -> int:
               f"T={rmod.TEAM}, {sms} SMs): " + "; ".join(parts))
     design["resident_shape"] = (shp, mac)      # the table shape's, last
     print(f"[2 design] resident_merge: {regs_txt['resident_merge']}")
+    # The weight kernel (zhat.cu, and pass A of fused_update.cu, both from
+    # weights.cuh) and the post-pass's pass B: team, block and tile, and
+    # registers and spills from ptxas.
+    csrc = os.path.join(HERE, "src", "repro_torch", "csrc")
+    wdesign = _constants(os.path.join(csrc, "weights.cuh"),
+                         ("WEIGHT_THREADS", "WEIGHT_TILE"))
+    rdesign = _constants(os.path.join(csrc, "fused_update.cu"),
+                         ("ROWS_THREADS", "ROWS_TILE", "MAX_R"))
+    for name, kern in (("zhat", "weights_kernel"),
+                       ("fused_update", "rows_kernel")):
+        log = (_build.build_dir() / f"{name}.log").read_text()
+        design[name] = {tag: _regs(log, f"{kern}I{code}E")
+                        for tag, code in (("float64", "d"), ("float32", "f"))}
+    wregs = "; ".join(f"{tag} {v[0]} registers, spill stores {v[1]} B, "
+                      f"loads {v[2]} B" for tag, v in design["zhat"].items())
+    rregs = "; ".join(f"{tag} {v[0]} registers, spill stores {v[1]} B, "
+                      f"loads {v[2]} B"
+                      for tag, v in design["fused_update"].items())
+    print(f"[2 design] zhat (weights.cuh, also the fused post-pass's pass "
+          f"A): team T={rmod.TEAM} lanes per pole, "
+          f"{wdesign['WEIGHT_THREADS']}-thread blocks "
+          f"({wdesign['WEIGHT_THREADS'] // rmod.TEAM} poles of one lane), "
+          f"the roots' d[origin], tau and d in two shared-memory tiles of "
+          f"{wdesign['WEIGHT_TILE']} (double-buffered); weights_kernel "
+          f"{wregs}")
+    print(f"[2 design] fused_update pass B: team T={rmod.TEAM} lanes per "
+          f"root column, {rdesign['ROWS_THREADS']}-thread blocks "
+          f"({rdesign['ROWS_THREADS'] // rmod.TEAM} columns of one lane), "
+          f"the poles' d, zhat and r <= {rdesign['MAX_R']} rows in two "
+          f"shared-memory tiles of {rdesign['ROWS_TILE']} "
+          f"(double-buffered); rows_kernel {rregs}")
 
     def report(name, dtype, shape, err, ok, k_ms, p_ms, extra=""):
         tag = str(dtype).replace("torch.", "")
@@ -524,10 +569,14 @@ def main() -> int:
                     max_abs_err=err, ms=k_ms, plain_ms=p_ms,
                     flops=_secular_ops(kps, niter), nbytes=nbytes,
                     dtype=tag)
-        # fused post-pass
-        for r in (2, 3):
-            B, K, kp = 8, 2048, 1536
-            d, z, rho, kpr = problem(B, K, kp, seed=r, dtype=dtype)
+        # fused post-pass: the kernel table's shape (r = 2, 3), then the
+        # levels the main path gives it above the resident threshold of an
+        # n = 16384 solve (r = 2: 4 lanes at K = 4096 with a kprime that is
+        # not a multiple of the team, 2 at K = 8192 with none deflated)
+        for B, r, K, kp in ((8, 2, 2048, 1536), (8, 3, 2048, 1536),
+                            (4, 2, 4096, 3581), (2, 2, 8192, 8192)):
+            seed = r if K == 2048 else K + kp
+            d, z, rho, kpr = problem(B, K, kp, seed=seed, dtype=dtype)
             o, t = sec.secular_solve_batched(d, z * z, rho, kpr, niter=niter,
                                              chunk=256)
             R = torch.randn(B, r, K, dtype=dtype, device=dev)
@@ -541,12 +590,13 @@ def main() -> int:
             k_ms, p_ms = _cuda_ms(torch, run_k), _cuda_ms(torch, run_p, 3)
             report("fused_update", dtype, (B, r, K, kp), max(e1, e2),
                    ok1 and ok2, k_ms, p_ms)
-            if (r, tag) == (3, "float64"):
+            if (K, r, tag) == (2048, 3, "float64"):
                 kps = kpr.cpu().numpy()
                 nbytes = ((2 * r + 4) * 8 + 4) * B * K + 12 * B
                 record["fused_update"] = dict(
                     max_abs_err=max(e1, e2), ms=k_ms, plain_ms=p_ms,
-                    flops=_postpass_ops(kps, r), nbytes=nbytes, dtype=tag)
+                    flops=_postpass_ops(kps, r), nbytes=nbytes, dtype=tag,
+                    pairs=float((kps.astype("float64") ** 2).sum()))
         # resident merge (plain version in slices of 8 lanes: its dense
         # (K, K) tiles would take ~16 GB at once)
         threshold = tune.backend_defaults("cuda")["resident_threshold"]
@@ -616,6 +666,7 @@ def main() -> int:
                     record[("zhat", K)] = dict(
                         max_abs_err=ez, ms=zk_ms, plain_ms=zp_ms, B=B, K=K,
                         kp=kp, flops=_zhat_ops(kps),
+                        pairs=_zhat_ops(kps) / 5,
                         nbytes=(4 * 8 + 4) * B * K + 12 * B)
             R = torch.randn(B, r, K, dtype=dtype, device=dev)
             run_k = lambda: boundary_rows_update_cuda(  # noqa: E731
@@ -651,6 +702,25 @@ def main() -> int:
                     library_ms=lib_ms, B=B, K=K, kp=kp, r=r,
                     ops=_boundary_ops(kps, r),
                     nbytes=((2 * r + 3) * 8 + 4) * B * K + 4 * B)
+
+        # zhat's largest lane: the root level of an n = 16384 lazy or
+        # full-vector solve (one lane of K = 16384).
+        B, K, kp = 1, 16384, 14336
+        d, z, rho, kpr = problem(B, K, kp, seed=K + 3, dtype=dtype)
+        o, t = secular_solve_cuda(d, z * z, rho, kpr, niter=niter)
+        run_k = lambda: zhat_reconstruct_cuda(  # noqa: E731
+            d, z, o, t, kpr, rho)
+        run_p = lambda: sec.zhat_reconstruct_batched(  # noqa: E731
+            d, z, o, t, kpr, rho, chunk=256)
+        ez, okz = excess(run_k(), run_p(), atol, rtol)
+        zk_ms, zp_ms = _cuda_ms(torch, run_k), _cuda_ms(torch, run_p, 3)
+        report("zhat", dtype, (B, K, kp), ez, okz, zk_ms, zp_ms)
+        if tag == "float64":
+            record[("zhat", K)] = dict(
+                max_abs_err=ez, ms=zk_ms, plain_ms=zp_ms, B=B, K=K, kp=kp,
+                flops=_zhat_ops(kpr.cpu().numpy()),
+                pairs=_zhat_ops(kpr.cpu().numpy()) / 5,
+                nbytes=(4 * 8 + 4) * B * K + 12 * B)
 
     # Library yardstick of kernel-table rows 1-2: torch.linalg.eigvalsh of
     # the pre-formed dense diag(d) + rho z z^T (formed before the clock),
@@ -714,7 +784,7 @@ def main() -> int:
                 bu_log, f"rows_team_kernelI{code}Li{nr}E")
         bu_regs[f"simt {tag}"] = _regs(bu_log, f"rows_tile_kernelI{code}E")
     bu_regs["mma f64"] = _regs(bu_log, "rows_mma_kernelE")
-    dmma = _sass_count(_build.build_dir() / "libboundary_update.so",
+    dmma = sass.count(_build.build_dir() / "libboundary_update.so",
                        "rows_mma_kernel", "DMMA")
     print("[2 design] boundary_update registers, spill stores, spill loads "
           "(B): " + "; ".join(f"{k} {v[0]}, {v[1]}, {v[2]}"
@@ -822,6 +892,60 @@ def main() -> int:
           f"about {int(c_cycles) / (chain_ms * 1e3):.0f} MHz); one trip "
           f"(S=64) {trip_ms:.4f} ms = {trip_ms / chain_ms:.3f}x this chain "
           f"bound ({smi})")
+
+    # Instruction figures of zhat, the post-pass and the Sturm counts at
+    # the table's shapes: each kernel's hot loop, read from its SASS
+    # (scripts/sass.py), gives its FP64-pipe instructions and all its
+    # instructions per pair or row; times the pairs or rows, over the SMs'
+    # FP64 lanes and issue slots at the SM clock of the chain probe above.
+    # Both count the code as compiled, so they diagnose the loop (how near
+    # it runs to its own issue rate) and do not bound the function: a loop
+    # that issues more than it needs looks near them.  The function's
+    # bound is the table's.  (A bisection trip is bound by its chain,
+    # above, not by instructions.)
+    sm_hz = int(c_cycles) / (chain_ms * 1e-3)
+
+    def per_item(name, kernel, items=1):
+        return sass.instructions_per_item(
+            _build.build_dir() / f"lib{name}.so", kernel, items)
+    counts = {
+        "zhat": per_item("zhat", "weights_kernelIdE"),
+        "pass A": per_item("fused_update", "weights_kernelIdE"),
+        "pass B": per_item("fused_update", "rows_kernelIdE"),
+        "sturm_count": per_item("sturm_count", "sturm_kernelIdLb0EE"),
+        "sturm_count_newton": per_item("sturm_count", "sturm_kernelIdLb1EE",
+                                       2)}
+    pa, pb = counts["pass A"], counts["pass B"]
+    counts["fused_update"] = ((pa[0] + pb[0], pa[1] + pb[1]) if pa and pb
+                              else None)
+    zr, fr = record[("zhat", 8192)], record["fused_update"]
+    st = record[("sturm", 64)]
+    sturm_rows = st["B"] * st["S"] * st["n"]
+    table = {"zhat": (zr["pairs"], zr["ms"], "pair",
+                      f"B={zr['B']} K={zr['K']} kprime={zr['kp']}"),
+             "fused_update": (fr["pairs"], fr["ms"], "pair",
+                              "B=8 r=3 K=2048 kprime=1536"),
+             "sturm_count": (sturm_rows, st["sturm_count"]["ms"], "row",
+                             f"B={st['B']} n={st['n']} S={st['S']}"),
+             "sturm_count_newton": (sturm_rows,
+                                    st["sturm_count_newton"]["ms"],
+                                    "row",
+                                    f"B={st['B']} n={st['n']} S={st['S']}")}
+    instr_bounds = {name: _instr_bounds_ms(counts[name], items, sm_hz, sms)
+                    for name, (items, *_) in table.items()}
+    parts = []
+    for name, (items, ms, unit, shape) in table.items():
+        if counts[name] is None:
+            parts.append(f"{name}: not measured (no cuobjdump)")
+            continue
+        fb, ib = instr_bounds[name]
+        parts.append(f"{name} ({shape}): {counts[name][0]:.2f} FP64-pipe "
+                     f"of {counts[name][1]:.2f} instructions per {unit}, "
+                     f"FP64 bound {fb:.4f} ms, issue-slot time "
+                     f"{ib:.4f} ms, kernel {ms:.4f} ms")
+    print(f"[2 bound] hot loops read from the SASS, at the SM clock "
+          f"{sm_hz / 1e6:.0f} MHz, {sms} SMs x 64 FP64 lanes and 128 issue "
+          f"slots a cycle: " + "; ".join(parts) + f" ({smi})")
 
     # QL's chain bound: the probe runs the kernel's rotation on one thread
     # with its rows in registers (the first PROBE_ROWS + 1 rows of phase
@@ -1445,7 +1569,7 @@ def main() -> int:
                     "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                     "plain_ms": rec["plain_ms"], "bound_ms": bound,
                     "bound_by": by, "library_ms": rec.get("library_ms")})
-        if name in design:
+        if name in ("secular_roots", "resident_merge"):
             regs, st, ld = design[name]["float64"]
             out[-1].update(library=rec["library"], team=rmod.TEAM,
                            registers_f64=regs, spill_bytes_f64=st + ld,
@@ -1454,6 +1578,22 @@ def main() -> int:
             shp, mac = design["resident_shape"]
             out[-1].update(cluster=shp.cluster, cta_threads=shp.threads,
                            clusters_at_once=mac)
+        if name == "fused_update":
+            out[-1].update(
+                redesigned="a team per pole, then per root column",
+                team=rmod.TEAM,
+                shape="B=8 r=3 K=2048 kprime=1536 f64",
+                pass_a_threads=wdesign["WEIGHT_THREADS"],
+                pass_a_tile=wdesign["WEIGHT_TILE"],
+                pass_b_threads=rdesign["ROWS_THREADS"],
+                pass_b_tile=rdesign["ROWS_TILE"],
+                registers_f64=[design["zhat"]["float64"][0],
+                               design["fused_update"]["float64"][0]],
+                fp64_per_pair=[c and c[0] for c in (pa, pb)],
+                instructions_per_pair=[c and c[1] for c in (pa, pb)],
+                fp64_instr_bound_ms=instr_bounds["fused_update"][0],
+                issue_slot_ms=instr_bounds["fused_update"][1],
+                sm_clock_mhz=sm_hz / 1e6)
     st = record[("sturm", 64)]
     bounds = {}
     for key, r in (("certify", st), ("trip", trip)):
@@ -1478,7 +1618,13 @@ def main() -> int:
         "trip_chain_bound_ms": trip["chain_ms"],
         "chain_ns_per_row": trip["chain_ns_row"],
         "chain_cycles_per_row": trip["chain_cycles_row"],
-        "trip_chain_rows": trip["n"]})
+        "trip_chain_rows": trip["n"],
+        "fp64_per_row": counts["sturm_count"] and counts["sturm_count"][0],
+        "instructions_per_row": (counts["sturm_count"]
+                                 and counts["sturm_count"][1]),
+        "fp64_instr_bound_ms": instr_bounds["sturm_count"][0],
+        "issue_slot_ms": instr_bounds["sturm_count"][1],
+        "sm_clock_mhz": sm_hz / 1e6})
     out.append({
         "name": "sturm_count_newton", "route": "cuda",
         "source": "src/repro_torch/csrc/sturm_count.cu",
@@ -1490,9 +1636,16 @@ def main() -> int:
         "shape": "B=64 n=4096 S=8192 f64", "bitwise": newton["bitwise"],
         "trip_ms": trip["sturm_count_newton"]["ms"],
         "trip_plain_ms": trip["sturm_count_newton"]["plain_ms"],
-        "trip_bound_ms": bounds["trip", 1][0]})
-    zr = record[("zhat", 8192)]
+        "trip_bound_ms": bounds["trip", 1][0],
+        "fp64_per_row": (counts["sturm_count_newton"]
+                         and counts["sturm_count_newton"][0]),
+        "instructions_per_row": (counts["sturm_count_newton"]
+                                 and counts["sturm_count_newton"][1]),
+        "fp64_instr_bound_ms": instr_bounds["sturm_count_newton"][0],
+        "issue_slot_ms": instr_bounds["sturm_count_newton"][1],
+        "sm_clock_mhz": sm_hz / 1e6})
     zb, zb_by = _bound_ms(zr["flops"], zr["nbytes"], "float64")
+    z16 = record[("zhat", 16384)]
     out.append({
         "name": "zhat", "route": "cuda",
         "source": "src/repro_torch/csrc/zhat.cu",
@@ -1501,7 +1654,22 @@ def main() -> int:
         "max_abs_err": zr["max_abs_err"], "ms": zr["ms"],
         "plain_ms": zr["plain_ms"], "bound_ms": zb, "bound_by": zb_by,
         "library_ms": None,
-        "shape": f"B={zr['B']} K={zr['K']} kprime={zr['kp']} f64"})
+        "shape": f"B={zr['B']} K={zr['K']} kprime={zr['kp']} f64",
+        "redesigned": "a team per pole", "team": rmod.TEAM,
+        "threads": wdesign["WEIGHT_THREADS"], "tile": wdesign["WEIGHT_TILE"],
+        "registers_f64": design["zhat"]["float64"][0],
+        "fp64_per_pair": counts["zhat"] and counts["zhat"][0],
+        "instructions_per_pair": counts["zhat"] and counts["zhat"][1],
+        "fp64_instr_bound_ms": instr_bounds["zhat"][0],
+        "issue_slot_ms": instr_bounds["zhat"][1],
+        "sm_clock_mhz": sm_hz / 1e6,
+        "k16384_shape": f"B=1 K=16384 kprime={z16['kp']} f64",
+        "k16384_ms": z16["ms"], "k16384_plain_ms": z16["plain_ms"],
+        "k16384_max_abs_err": z16["max_abs_err"],
+        "k16384_bound_ms": _bound_ms(z16["flops"], z16["nbytes"],
+                                     "float64")[0],
+        "k16384_fp64_instr_bound_ms": _instr_bounds_ms(
+            counts["zhat"], z16["pairs"], sm_hz, sms)[0]})
     for r, K in ((4096, 4096), (3, 8192)):
         br_ = record[("boundary", r, K)]
         fma, rest = br_["ops"]

@@ -2,7 +2,7 @@
 """Time the port's hand-written kernels on one CUDA card, at the shapes of
 the kernel table in PERF.md and at the levels of the solves they serve.
 
-    python3 scripts/time_merge_kernels.py [--kernels merge|two_pass]
+    python3 scripts/time_merge_kernels.py [--kernels merge|two_pass|postpass]
                                           [--src DIR] [--label NAME]
                                           [--sweep-clusters]
 
@@ -26,7 +26,8 @@ one) and the bytes over 3.35 TB/s, as in chip_smoke.py.  For the root
 solve the FP64 instruction rate is estimated too: the FP64-pipe
 instructions of one term of the g/g' sweep, read from the kernel's SASS
 (cuobjdump), times the terms it sweeps, over the time; its share is
-against 64 FP64 lanes per SM per clock at the card's maximum SM clock.
+against 64 FP64 lanes per SM per clock at the card's maximum SM clock
+(None where the toolkit has no cuobjdump).
 (The resident merge has other loops with a reciprocal per term -- the
 columns -- so the same reading would not isolate its sweep; it gets
 none.)  ``--sweep-clusters`` times the resident shapes once more at every
@@ -55,6 +56,32 @@ launch's bit for bit.
     float64) until its active rows fit -- where the version has that
     regime.
 
+``--kernels postpass``: the weight kernel of the two-pass conquer
+(``csrc/zhat.cu``) and the fused post-pass (``csrc/fused_update.cu``):
+
+  * zhat at chip_smoke.py's shapes (B = 4, K = 4096 and B = 2, K = 8192,
+    kprime = 7K/8; B = 1, K = 16384, kprime = 14336), at the post-pass
+    table's (B = 8, K = 2048, kprime = 1536: the post-pass's pass A is
+    the same kernel) and at every level of an n = 16384 lazy or
+    full-vector solve (16384 / K lanes, K = 64 ... 16384, kprime = K);
+  * the post-pass at the kernel table's shape (B = 8, r = 3, K = 2048,
+    kprime = 1536) and at the levels an n = 16384 solve gives it (r = 2:
+    4 lanes at K = 4096, 2 at K = 8192; kprime = K).
+
+Origin and tau come from the version's own root solve.  Each line has
+the median time of one call (``ms``, as the other modes and
+chip_smoke.py time a kernel) and of one call in a burst of 20 back to
+back (``ms_in_burst_of_20``: the device's time, the wrapper's host time
+hidden); the function's bound, the table's (operations over 34 TFLOP/s
+-- zhat 5 per (pole, root) pair, the post-pass 10 + 2r -- or bytes over
+3.35 TB/s); and two diagnostics of the code as compiled: the FP64-pipe
+instructions and all instructions per pair of the version's hot loop
+(``scripts/sass.py``: SASS read with cuobjdump) times the pairs, over
+the card's SMs x 64 FP64 lanes (``fp64_instr_bound_ms``) and x 128
+issue slots (``issue_slot_ms``) an SM per clock, at the SM clock
+measured in this call (the Sturm chain probe's clock64 cycles over its
+time); None where the toolkit has no cuobjdump.
+
 The row update's origin and tau come from the version's own root solve
 and its weights from its own zhat kernel.  Its bound is the larger of its
 operations -- the product's 2 r kprime^2 per lane over the FP64 tensor
@@ -70,6 +97,8 @@ import os
 import statistics
 import subprocess
 import sys
+
+import sass
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -152,6 +181,27 @@ def median_ms(fn, reps=5):
     return statistics.median(times)
 
 
+def burst_ms(fn, launches=20, reps=5):
+    """Median over ``reps`` of the CUDA-event time of ``launches`` calls
+    of fn() back to back, over ``launches``: the device's time per call
+    once the host's wrapper time (tens of microseconds a call) overlaps
+    the kernels before it."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
 def problem(dev, B, K, kp, rng):
     """A float64 merge problem on ``dev`` drawn from ``rng``: d, z, rho,
     kprime."""
@@ -168,42 +218,31 @@ def problem(dev, B, K, kp, rng):
             torch.full((B,), kp, dtype=torch.int32, device=dev))
 
 
-def _fp64_per_term(lib, kernel):
-    """FP64-pipe instructions (DADD, DMUL, DFMA, DSETP) of one term of the
-    g/g' sweep in ``kernel``<double>, read from the SASS of ``lib``
-    (cuobjdump): every term of a sweep forms one reciprocal estimate
-    (MUFU.RCP64H), so the code between consecutive estimates is one term,
-    and the most common count among those stretches is the unrolled
-    sweep's.  None when cuobjdump is missing."""
-    import collections
-    import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300).stdout
-    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
-        if f"{kernel}IdE" not in fn.split("\n", 1)[0]:
-            continue
-        counts, cur = [], None
-        for op in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                             r"([A-Z][A-Z0-9_.]*)", fn):
-            if op.startswith("MUFU.RCP64H"):
-                if cur is not None:
-                    counts.append(cur)
-                cur = 0
-            elif cur is not None and op.split(".")[0] in (
-                    "DADD", "DMUL", "DFMA", "DSETP"):
-                cur += 1
-        return (collections.Counter(counts).most_common(1)[0][0]
-                if counts else None)
-    return None
+def _instructions_per_item(build, name, kernel, per_item=1):
+    """(FP64-pipe instructions, all instructions) per item of ``kernel``'s
+    hot loop in the version's built lib<name>.so (scripts/sass.py), or
+    None where the toolkit has no cuobjdump."""
+    return sass.instructions_per_item(build.build_dir() / f"lib{name}.so",
+                                      kernel, per_item)
+
+
+def _sm_clock_hz(dev):
+    """The SM clock in this call: the Sturm chain probe's clock64 cycles
+    over its CUDA-event time (one thread walking 16384 rows)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.sturm_count import chain_probe_cuda
+    rng = np.random.default_rng(0)
+    d = torch.tensor(rng.standard_normal(16384), device=dev)
+    e2 = torch.tensor(rng.standard_normal(16383) ** 2, device=dev)
+    _, cycles = chain_probe_cuda(d, e2, 0.0, 1e-300)
+    return int(cycles) / (median_ms(
+        lambda: chain_probe_cuda(d, e2, 0.0, 1e-300)) * 1e-3)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--kernels", choices=("merge", "two_pass"),
+    ap.add_argument("--kernels", choices=("merge", "two_pass", "postpass"),
                     default="merge")
     ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
     ap.add_argument("--label", default="this checkout")
@@ -218,6 +257,8 @@ def main() -> int:
     smi = card()
     if args.kernels == "two_pass":
         return _time_two_pass(args.label, dev, smi)
+    if args.kernels == "postpass":
+        return _time_postpass(args.label, dev, smi)
     return _time_merge(args, dev, smi)
 
 
@@ -240,9 +281,9 @@ def _time_merge(args, dev, smi):
     peak_instr = (torch.cuda.get_device_properties(0).multi_processor_count
                   * 64 * float(clock[0]) * 1e6) if clock else None
     _build.build_all(["secular_roots"])
-    per_term = {"secular_roots": _fp64_per_term(
-        _build.build_dir() / "libsecular_roots.so", "secular_roots_kernel"),
-        "resident_merge": None}
+    counts = _instructions_per_item(_build, "secular_roots",
+                                    "secular_roots_kernelIdE")
+    per_term = {"secular_roots": counts and counts[0], "resident_merge": None}
 
     def emit(kernel, shape, ms, ops, nbytes, pairs, **extra):
         bound = max(ops / PEAK_FP64, nbytes / PEAK_BYTES) * 1e3
@@ -317,6 +358,72 @@ def _sweep_clusters(rmod, emit, d, z, R, rho, kpr, B, r, K, kp, niter):
             C *= 2
     finally:
         rmod.launch_shape = picked
+
+
+# (B, K, kprime) of zhat: chip_smoke.py's shapes and the post-pass
+# table's (zhat is the post-pass's pass A), then every level of an
+# n = 16384 lazy or full-vector solve.
+ZHAT = ([(4, 4096, 3584), (2, 8192, 7168), (1, 16384, 14336),
+         (8, 2048, 1536)]
+        + [(16384 // K, K, K) for K in (64, 128, 256, 512, 1024, 2048, 4096,
+                                        8192, 16384)])
+# (B, r, K, kprime) of the post-pass: the kernel table's shape, then the
+# levels an n = 16384 solve gives it (r = 2, the boundary rows).
+POSTPASS = [(8, 3, 2048, 1536), (4, 2, 4096, 4096), (2, 2, 8192, 8192)]
+
+
+def _time_postpass(label, dev, smi):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_update import secular_postpass_cuda
+    from repro_torch.kernels.secular_roots import secular_solve_cuda
+    from repro_torch.kernels.zhat import zhat_reconstruct_cuda
+    _build.build_all(["zhat", "fused_update", "sturm_count",
+                      "secular_roots"])
+    clock = _sm_clock_hz(dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_pair = {
+        "zhat": _instructions_per_item(_build, "zhat", "weights_kernelIdE"),
+        "pass A": _instructions_per_item(_build, "fused_update",
+                                         "weights_kernelIdE"),
+        "pass B": _instructions_per_item(_build, "fused_update",
+                                         "rows_kernelIdE")}
+
+    def emit(kernel, shape, run, ops, nbytes, pairs, instr):
+        table = max(ops / PEAK_FP64, nbytes / PEAK_BYTES) * 1e3
+        fp64, issue = ((instr[0] * pairs / (sms * 64 * clock) * 1e3,
+                        instr[1] * pairs / (sms * 128 * clock) * 1e3)
+                       if instr else (None, None))
+        print(json.dumps(dict(
+            label=label, kernel=kernel, shape=shape, ms=median_ms(run),
+            ms_in_burst_of_20=burst_ms(run), bound_ms=table,
+            fp64_per_pair=instr and instr[0],
+            instructions_per_pair=instr and instr[1],
+            sm_clock_mhz=clock / 1e6, fp64_instr_bound_ms=fp64,
+            issue_slot_ms=issue, card=smi)), flush=True)
+
+    for B, K, kp in ZHAT:
+        d, z, rho, kpr = problem(dev, B, K, kp,
+                                 np.random.default_rng(K + kp))
+        o, t = secular_solve_cuda(d, z * z, rho, kpr, niter=16)
+        emit("zhat", f"B={B} K={K} kprime={kp} f64",
+             lambda: zhat_reconstruct_cuda(d, z, o, t, kpr, rho),
+             float(B) * kp * kp * 5, (4 * 8 + 4) * B * K + 12 * B,
+             float(B) * kp * kp, per_pair["zhat"])
+        del d, z, o, t
+    torch.manual_seed(0)
+    for B, r, K, kp in POSTPASS:
+        d, z, rho, kpr = problem(dev, B, K, kp, np.random.default_rng(K + r))
+        o, t = secular_solve_cuda(d, z * z, rho, kpr, niter=16)
+        R = torch.randn(B, r, K, dtype=torch.float64, device=dev)
+        pa, pb = per_pair["pass A"], per_pair["pass B"]
+        ab = (pa[0] + pb[0], pa[1] + pb[1]) if pa and pb else None
+        emit("fused_update", f"B={B} r={r} K={K} kprime={kp} f64",
+             lambda: secular_postpass_cuda(R, d, z, o, t, kpr, rho),
+             _postpass_ops(B, kp, r), ((2 * r + 4) * 8 + 4) * B * K + 12 * B,
+             float(B) * kp * kp, ab)
+    return 0
 
 
 def _time_two_pass(label, dev, smi):

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's end-to-end solves on one CUDA card, and the share of
-each solve that its merge levels' deflation chain takes.
+each solve that its merge levels' deflation chain, weights (zhat) and
+fused post-pass take.
 
     python3 scripts/time_solves.py [--src DIR] [--label NAME] [--mixed]
+                                   [--compare]
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (for
 instance an unpacked parent commit: ``git archive <commit> src | tar -x
@@ -15,10 +17,15 @@ Solves, float64, inputs as ``chip_smoke.py`` makes them:
 (the first glued-Wilkinson problem of the batch), and
 ``eigvalsh_tridiagonal_batch`` at B = 64 x 4096 (uniform and glued
 Wilkinson, seed0 100): CUDA events, median of 5 after a warm-up.  Then
-one more run of each with ``merge._deflate_level`` timed on the host
-clock between two ``torch.cuda.synchronize()`` calls: the deflation
-chain's time per level (the kernel's launch, or the parent's Python
-chain with its host syncs) beside the solve's wall time in that run.
+one more run of each with ``merge._deflate_level``,
+``ops.zhat_reconstruct_batched`` and ``ops.secular_postpass_batched``
+each timed on the host clock between two ``torch.cuda.synchronize()``
+calls: the deflation chain's time per level (the kernel's launch, or the
+parent's Python chain with its host syncs) and the weights' and the
+post-pass's time in all, beside the solve's wall time in that run.
+``--compare`` adds the paper's comparison points that run zhat:
+``fused=False``, ``method="lazy"`` and ``method="full"`` at n = 16384
+(uniform) and n = 4096 (the glued-Wilkinson problem).
 ``--mixed`` also times one run of ``eigvalsh_tridiagonal`` of the
 glued-Wilkinson B = 64 x 4096 batch with ``precision="mixed"``, whose
 ladder re-solves every problem natively one at a time (minutes on a
@@ -70,6 +77,7 @@ def main() -> int:
     ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--mixed", action="store_true")
+    ap.add_argument("--compare", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -80,6 +88,7 @@ def main() -> int:
                                   eigvalsh_tridiagonal_batch, make_family,
                                   make_family_batch)
     from repro_torch.core import merge as mrg
+    from repro_torch.kernels import ops
 
     smi = card()
 
@@ -95,20 +104,37 @@ def main() -> int:
         "B=64 x 4096 uniform": lambda: eigvalsh_tridiagonal_batch(Du, Eu),
         "B=64 x 4096 glued_wilkinson": lambda: eigvalsh_tridiagonal_batch(
             Dg, Eg)}
-    for name, fn in solves.items():
-        ms = median_ms(fn)
-        levels = []
-        real = mrg._deflate_level
+    if args.compare:
+        for label, (d, e) in (("n=16384 uniform", (d16, e16)),
+                              ("n=4096 glued_wilkinson", (Dg[0], Eg[0]))):
+            solves[f"{label} fused=False"] = (
+                lambda d=d, e=e: eigvalsh_tridiagonal(d, e, fused=False))
+            for method in ("lazy", "full"):
+                solves[f"{label} {method}"] = (
+                    lambda d=d, e=e, m=method: eigvalsh_tridiagonal(
+                        d, e, method=m))
 
-        def timed(d, z, R, small, tol, *, budget):
+    def timed(real, log, K_of):
+        def run(*a, **k):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = real(d, z, R, small, tol, budget=budget)
+            out = real(*a, **k)
             torch.cuda.synchronize()
-            levels.append((d.shape[1], (time.perf_counter() - t0) * 1e3))
+            log.append((K_of(*a), (time.perf_counter() - t0) * 1e3))
             return out
+        return run
 
-        mrg._deflate_level = timed
+    for name, fn in solves.items():
+        ms = median_ms(fn)
+        spied = {(mrg, "_deflate_level"): [],
+                 (ops, "zhat_reconstruct_batched"): [],
+                 (ops, "secular_postpass_batched"): []}
+        reals = {key: getattr(*key) for key in spied}
+        for (mod, attr), log in spied.items():
+            setattr(mod, attr, timed(
+                reals[mod, attr], log,
+                (lambda R, d, *a: d.shape[1]) if attr.startswith("secular")
+                else (lambda d, *a: d.shape[1])))
         try:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -116,10 +142,15 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         finally:
-            mrg._deflate_level = real
+            for (mod, attr), real in reals.items():
+                setattr(mod, attr, real)
+        levels, zhat, post = spied.values()
         emit(solve=name, ms=ms, timed_run_wall_ms=wall,
              chain_ms=sum(t for _, t in levels),
-             chain_ms_per_level={str(K): t for K, t in levels})
+             chain_ms_per_level={str(K): t for K, t in levels},
+             zhat_ms=sum(t for _, t in zhat), zhat_launches=len(zhat),
+             postpass_ms=sum(t for _, t in post),
+             postpass_launches=len(post))
     if args.mixed:
         torch.cuda.synchronize()
         t0 = time.perf_counter()

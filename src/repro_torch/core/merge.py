@@ -62,12 +62,30 @@ def _deflate_tolerance(d, z, rho_eff, tol_factor):
                                                                  rho_eff)
 
 
+def _hypot(a, b):
+    """hypot(a, b) elementwise, the same bits for an element wherever it
+    lies in memory.  On the card ``torch.hypot`` (CUDA's hypot: the chain
+    kernel ``csrc/deflate_chain.cu`` is held to it bit for bit).  On the
+    CPU, ATen's hypot takes a vectorised path for contiguous blocks and
+    scalar ``std::hypot`` for strided or tail elements, and the two part
+    by an ulp in some pairs, which would make a lane's chain depend on
+    its place in the batch; so there it is m sqrt(1 + (s/m)^2) with m =
+    max(|a|, |b|) and s = min(|a|, |b|) (0 where m is 0), each step an
+    elementwise IEEE-rounded operation."""
+    if a.is_cuda:
+        return torch.hypot(a, b)
+    a, b = a.abs(), b.abs()
+    m = torch.maximum(a, b)
+    q = torch.minimum(a, b) / torch.where(m > 0.0, m, torch.ones_like(m))
+    return m * torch.sqrt(1.0 + q * q)
+
+
 def _rotation(pd, pz, d_i, z_i, tol):
     """The DLAED2 close-pair test and Givens rotation of pole i against the
     previous kept pole p, elementwise over lanes.  Returns (close0, c, s_g,
     tau_g, d_p_new, d_i_new) where close0 omits the validity terms the
     callers add."""
-    tau_g = torch.hypot(pz, z_i)
+    tau_g = _hypot(pz, z_i)
     tau_safe = torch.where(tau_g > 0.0, tau_g, torch.ones_like(tau_g))
     c = z_i / tau_safe          # LAPACK: C = Z(NJ)/TAU
     s_g = -pz / tau_safe        # LAPACK: S = -Z(PJ)/TAU

@@ -17,7 +17,7 @@
 //
 // What bounds it on this card: FP64 arithmetic -- O(niter K^2) terms for
 // the solve and O(K^2) for the columns (one reciprocal each) and for the
-// weights (one division each, secular::weight_factor), on O(r K) bytes --
+// weights (one reciprocal each, secular::weight_factor), on O(r K) bytes --
 // and, as for the root solve (secular_roots.cu), the latency of each
 // root's chain of sums.  The levels it serves have few lanes where K is
 // large: the n = 16384 solve merges 8 lanes at K = 2048, 16 at 1024, 32
@@ -39,10 +39,12 @@
 //   2. weights: one team per pole, the ratio product over the active
 //      roots split over the team's lanes (each lane's factors in root
 //      order, combined by a butterfly of products and of the floored
-//      counts, added as integers); a pole's weight replaces its z in
+//      counts, added as integers: secular::team_weight, which zhat and
+//      the fused post-pass run too); a pole's weight replaces its z in
 //      shared memory (z_i is read only by the team that owns pole i);
 //   3. columns: one team per root column, the sums over the active poles
-//      split over the lanes and combined as in phase 1, then normalised.
+//      split over the lanes and combined as in phase 1, then normalised
+//      (secular::team_column, the fused post-pass's pass B).
 //
 // Phases 2 and 3 need every root's d[origin] and tau, and every pole's
 // weight.  After each cluster barrier a CTA copies the other CTAs' shares
@@ -101,10 +103,36 @@ struct SmemPoles {
   }
 };
 
+// The active roots (phase 2) and poles (phase 3) of the lane in shared
+// memory, visited for secular::team_weight and secular::team_column.
 template <typename T>
-__device__ __forceinline__ T sign_of(T x) {
-  return x > T(0) ? T(1) : (x < T(0) ? T(-1) : T(0));
-}
+struct SmemRoots {
+  const T* dorg;
+  const T* tau;
+  const T* d;
+  int n;      // active roots (kprime)
+  int lane;
+
+  template <class F>
+  __device__ void sweep(F f) {
+    for (int j = lane; j < n; j += TEAM) f(j, dorg[j], tau[j], d[j]);
+  }
+};
+
+template <typename T>
+struct SmemColumnPoles {
+  const T* d;
+  const T* w;
+  const T* R;  // r x K
+  int n;       // active poles (kprime)
+  int K;
+  int lane;
+
+  template <class F>
+  __device__ void sweep(F f) {
+    for (int i = lane; i < n; i += TEAM) f(i, d[i], w[i], R + i, K);
+  }
+};
 
 // This CTA's share of the items [0, K): the active items [0, kp) and the
 // deflated ones [kp, K) are each cut into C contiguous pieces.
@@ -198,26 +226,17 @@ resident_merge_kernel(const T* __restrict__ d, const T* __restrict__ z,
   __syncthreads();
 
   // ---- phase 2: weights, one team per pole -----------------------------
+  SmemRoots<T> roots{s_dorg, s_tau, s_d, kp, team.lane};
+  const T gaps = kp > 0 ? secular::gap_scale<T>(s_d[0], s_d[kp - 1]) : T(1);
   sh.for_each(rank, first, nteams, [&](int i) {
     const T z_i = s_z[i];
     T out = z_i;
     if (use_zhat && i < kp) {
-      // Factors by magnitude, the product in double, magnitudes below
-      // the smallest normal number counted: see secular::weight_factor.
       const T d_i = s_d[i];
-      double prod = 1.0;
-      int floored = 0;
-      for (int jj = team.lane; jj < kp; jj += TEAM) {
-        if (jj == i) continue;
-        prod *= secular::weight_factor<T>((s_dorg[jj] - d_i) + s_tau[jj],
-                                          s_d[jj] - d_i, floored);
-      }
-      prod = team.prod(prod);
-      floored = team.sum(floored);
       // lam_i - d_i
-      const double z2 = secular::weight_z2<T>(
-          prod, (s_dorg[i] - d_i) + s_tau[i], (double)rh, floored);
-      out = sign_of(z_i) * (T)sqrt(z2);
+      out = secular::team_weight<T>(team, i, d_i, z_i,
+                                    (s_dorg[i] - d_i) + s_tau[i], (double)rh,
+                                    gaps, roots);
     }
     if (team.lane == 0) {
       zhat[off + i] = out;
@@ -231,30 +250,16 @@ resident_merge_kernel(const T* __restrict__ d, const T* __restrict__ z,
 
   // ---- phase 3: columns, one team per root -----------------------------
   T* rb = rows + (size_t)b * r * K;
+  SmemColumnPoles<T> cols{s_d, s_w, s_R, kp, K, team.lane};
   sh.for_each(rank, first, nteams, [&](int j) {
     if (j >= kp) {
       if (team.lane == 0)
         for (int q = 0; q < r; ++q) rb[(size_t)q * K + j] = s_R[q * K + j];
       return;
     }
-    const T d_org = s_dorg[j];
-    const T tau_j = s_tau[j];
-    T acc[MAX_R] = {T(0), T(0), T(0), T(0)};
-    T nrm2 = T(0);
-    for (int i = team.lane; i < kp; i += TEAM) {
-      // An exact zero denominator divides by 1, as the plain version does.
-      const T y = s_w[i] * secular::inv_or_one((s_d[i] - d_org) - tau_j);
-#pragma unroll
-      for (int q = 0; q < MAX_R; ++q)
-        if (q < r) acc[q] += s_R[q * K + i] * y;
-      nrm2 += y * y;
-    }
-#pragma unroll
-    for (int q = 0; q < MAX_R; ++q)
-      if (q < r) acc[q] = team.sum(acc[q]);
-    nrm2 = team.sum(nrm2);
-    const T nrm = sqrt(nrm2);
-    const T scale = nrm > T(0) ? nrm : T(1);
+    T acc[MAX_R];
+    const T scale = secular::team_column<T, MAX_R>(team, s_dorg[j], s_tau[j],
+                                                   r, cols, acc);
     if (team.lane == 0) {
 #pragma unroll
       for (int q = 0; q < MAX_R; ++q)

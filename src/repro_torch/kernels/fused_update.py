@@ -3,8 +3,9 @@
 ``repro.kernels.fused_update.secular_postpass_pallas_batch``).
 
 Two passes in one call on the current stream: pole-major weights, then
-root-major columns (the TPU kernel's ordered grid has no CUDA analogue);
-see the source for the design.  The plain version beside it is
+root-major columns (the TPU kernel's ordered grid has no CUDA analogue),
+each output taken by a team of lanes; see the source for the design.
+The plain version beside it is
 ``repro_torch.core.secular.secular_postpass_batched``: on a CPU tensor
 ``kernels.ops`` runs that; on a CUDA tensor it launches this kernel.
 """

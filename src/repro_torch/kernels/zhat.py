@@ -1,11 +1,13 @@
-"""Log-space Gu-Eisenstat weights of the two-pass conquer on the card:
-wrapper of ``csrc/zhat.cu`` (replaces the Pallas TPU kernel
+"""Gu-Eisenstat weights of the two-pass conquer on the card: wrapper of
+``csrc/zhat.cu`` (replaces the Pallas TPU kernel
 ``repro.kernels.zhat.zhat_reconstruct_pallas``).
 
-One thread per pole, the roots staged through shared memory; see the
-source for the design.  The plain version beside it is
-``repro_torch.core.secular.zhat_reconstruct_batched``: on a CPU tensor
-``kernels.ops`` runs that; on a CUDA tensor it launches this kernel.
+One team of lanes per pole, DLAED3's ratio product (the fused post-pass's
+pass A, ``csrc/weights.cuh``), the roots staged through double-buffered
+shared-memory tiles; see the source for the design.  The plain version
+beside it is ``repro_torch.core.secular.zhat_reconstruct_batched`` (log
+space, as in ``repro``): on a CPU tensor ``kernels.ops`` runs that; on a
+CUDA tensor it launches this kernel.
 """
 
 from __future__ import annotations

@@ -16,10 +16,11 @@ and the algorithm of the card's kernel (``csrc/deflate_chain.cu``).
     bit for bit on every level of a glued n = 1024 solve, on the edge
     cases (a rotation the CPU's parallel head misses, K = 2, all poles
     small, a small first pole, a tau == 0 pair) and in a hypothesis sweep.
-    The plain chain runs one lane at a time there: torch's float64 hypot
-    on the CPU takes another code path for a vectorised block of lanes
-    than for a lone element, and the two part by an ulp in about 4 of
-    10^4 pairs, while numpy's hypot is the lone element's.
+    The model takes the plain chain's hypot (``merge._hypot``: on the CPU
+    one formula for every element, since ATen's float64 hypot takes
+    another code path for a vectorised block of lanes than for a lone
+    element, and the two part by an ulp in some pairs); the plain chain
+    runs one lane at a time there.
 
 The card's twins (kernel == plain chain on the card bit for bit, batched
 == one lane, one launch per level, no host sync) are ``gpu`` tests in
@@ -186,7 +187,8 @@ def _window_scan(d, z, R, small, tol, window):
         pd = np.where(inwin, di[prev], cd)
         pz = np.where(inwin, zi[prev], cz)
         p = np.where(inwin, start + prev, cidx)
-        tau = np.hypot(pz, zi)
+        tau = tmerge._hypot(torch.from_numpy(pz),
+                            torch.from_numpy(zi)).numpy()
         tau_safe = np.where(tau > 0, tau, one)
         c = zi / tau_safe
         s = -pz / tau_safe

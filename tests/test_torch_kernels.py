@@ -44,6 +44,7 @@ from repro_torch.kernels.boundary_update import (  # noqa: E402
 from repro_torch.kernels import deflate_chain as dck  # noqa: E402
 from repro_torch.kernels.deflate_chain import deflate_chain_cuda  # noqa: E402
 from repro_torch.kernels.fused_update import secular_postpass_cuda  # noqa: E402
+from repro_torch.kernels import resident_merge as rmod  # noqa: E402
 from repro_torch.kernels.resident_merge import resident_merge_cuda  # noqa: E402
 from repro_torch.kernels.secular_roots import secular_solve_cuda  # noqa: E402
 from repro_torch.kernels import sterf as qlk  # noqa: E402
@@ -144,11 +145,26 @@ def _tols(dtype):
     return 1e-13 * scale, 1e-12 * scale, 1e-10 * scale
 
 
+def _assert_wrong_weights_fail(w, want, atol, rtol):
+    """A zeroed and a sign-flipped weight vector fail the bar that ``w``
+    passes (the bar tells a right weight from a wrong one wherever a
+    weight is above atol; the caller's inputs have such weights)."""
+    bar = atol + rtol * want.abs()
+    assert bool(((w - want).abs() <= bar).all())
+    assert bool((want.abs() > atol).any())
+    for wrong in (torch.zeros_like(w), -w):
+        assert not bool(((wrong - want).abs() <= bar).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("B,K,kprime", [(3, 130, 101), (2, 1030, 700),
-                                        (1, 16, 1)])
+                                        (1, 16, 1), (1, 8192, 7165)])
 def test_kernels_match_plain_on_card(cuda_device, dtype, B, K, kprime):
+    """The root solve, the fused post-pass and (where its lane fits in
+    shared memory) the resident merge against their plain versions; a
+    K = 8192 lane with a kprime that is not a multiple of the team size
+    takes the post-pass at the size of the main path's top levels."""
     d, z, rho, kp = _problem(B, K, kprime, seed=3, dtype=dtype,
                              device=cuda_device)
     R = torch.randn(B, 3, K, dtype=dtype, device=cuda_device)
@@ -163,6 +179,9 @@ def test_kernels_match_plain_on_card(cuda_device, dtype, B, K, kprime):
     zh2, r2 = tsec.secular_postpass_batched(R, d, z, o2, t2, kp, rho)
     torch.testing.assert_close(zh1, zh2, atol=atol, rtol=rtol)
     torch.testing.assert_close(r1, r2, atol=atol, rtol=rtol)
+    _assert_wrong_weights_fail(zh1, zh2, atol, rtol)
+    if rmod.smem_bytes(3, K, dtype) > rmod.SMEM_LIMIT:
+        return
     res1 = resident_merge_cuda(d, z, R, rho, kp, niter=niter)
     res2 = tsec.secular_merge_resident_batched(d, z, R, rho, kp, niter=niter)
     torch.testing.assert_close(tsec.secular_eigenvalues(d, *res1[:2]),
@@ -403,16 +422,19 @@ def _rows_bar(R, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("B,K,kprime", [(3, 130, 101), (2, 1030, 700),
                                         (1, 16, 1), (2, 257, 256),
-                                        (2, 130, 0), (2, 300, 300)])
+                                        (2, 130, 0), (2, 300, 300),
+                                        (1, 8192, 7165)])
 def test_two_pass_kernels_match_plain_on_card(cuda_device, dtype, B, K,
                                               kprime):
     """zhat and the row update against their plain versions, with an exact
     zero denominator planted in root column 0 (the plain version's rule:
     the pole contributes its weight); kprime from 0 (every column passes
-    R through) to K, and r in {1, 3, 4, 5, 64, 65, 129, K}: both paths of
+    R through) to K, a K = 8192 lane whose kprime is not a multiple of
+    the team size, and r in {1, 3, 4, 5, 64, 65, 129, K}: both paths of
     the row update (a team per column up to 4 rows, output tiles above:
     on the FP64 tensor cores in float64) with ragged row tiles.  A zeroed
-    and a sign-flipped output must fail the row update's bar."""
+    and a sign-flipped output must fail the row update's bar, and a
+    zeroed and a sign-flipped zhat the weights' bar."""
     for r in (1, 3, 4, 5, 64, 65, 129, K):
         d, z, rho, kp = _problem(B, K, kprime, seed=K + r, dtype=dtype,
                                  device=cuda_device)
@@ -422,9 +444,11 @@ def test_two_pass_kernels_match_plain_on_card(cuda_device, dtype, B, K,
         o[:, 0], t[:, 0] = 0, 0.0             # delta_00 == 0 exactly
         _, atol, rtol = _tols(dtype)
         w = zhat_reconstruct_cuda(d, z, o, t, kp, rho)
+        w_plain = tsec.zhat_reconstruct_batched(d, z, o, t, kp, rho)
         torch.testing.assert_close(
-            w, tsec.zhat_reconstruct_batched(d, z, o, t, kp, rho),
-            atol=atol, rtol=rtol, msg=lambda m: f"r={r}: {m}")
+            w, w_plain, atol=atol, rtol=rtol, msg=lambda m: f"r={r}: {m}")
+        if kprime > 1:      # kprime = 1: the planted root leaves zhat_0 tiny
+            _assert_wrong_weights_fail(w, w_plain, atol, rtol)
         rows = boundary_rows_update_cuda(R, d, w, o, t, kp)
         want = tsec.boundary_rows_update_batched(R, d, w, o, t, kp)
         bar = _rows_bar(R, want, dtype)
@@ -507,6 +531,40 @@ def test_weights_where_poles_coincide_far_from_the_next_root_on_card(
         assert bool(torch.isfinite(got).all())
     for a, b in ((res[2], zp), (zh, zp), (res[3], rp), (rows, rp)):
         torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+
+
+@pytest.mark.gpu
+def test_weights_where_pole_gaps_pass_the_reciprocal_range_on_card(
+        cuda_device):
+    """A float64 lane whose poles span 1.2 * 2^1023: the reciprocal of its
+    widest gaps is subnormal, which the hardware estimate flushes to
+    zero.  The weight kernel (zhat, and the post-pass's pass A) scales the
+    lane's gaps into range (secular::gap_scale): its weights match the
+    plain log-space ones, a zeroed or sign-flipped weight fails that bar,
+    and they equal bit for bit the weights of the same lane scaled by
+    2^-1000 (gaps in range, scale 1), since power-of-two scaling leaves
+    every factor's bits."""
+    K = 8
+    d = np.linspace(-0.6, 0.6, K) * 2.0 ** 1023
+    gap = np.diff(d)
+    tau = 0.3 * np.append(gap, gap[-1])
+    z = np.random.default_rng(11).standard_normal(K)
+    z /= np.linalg.norm(z)
+    lanes = np.array([1.0, 2.0 ** -1000])[:, None]
+    t = lambda a, dt=torch.float64: torch.tensor(  # noqa: E731
+        a, dtype=dt, device=cuda_device)
+    d_b, tau_b, z_b = t(d * lanes), t(tau * lanes), t(np.tile(z, (2, 1)))
+    origin = t(np.tile(np.arange(K), (2, 1)), torch.int32)
+    rho = t(2.0 ** 1020 * lanes[:, 0])
+    kp = torch.full((2,), K, dtype=torch.int32, device=cuda_device)
+    R = t(np.tile(np.eye(K)[:2], (2, 1, 1)))
+    _, atol, rtol = _tols(torch.float64)
+    want = tsec.zhat_reconstruct_batched(d_b, z_b, origin, tau_b, kp, rho)
+    w = zhat_reconstruct_cuda(d_b, z_b, origin, tau_b, kp, rho)
+    wf, _ = secular_postpass_cuda(R, d_b, z_b, origin, tau_b, kp, rho)
+    assert torch.equal(w, wf)
+    assert torch.equal(w[0], w[1])
+    _assert_wrong_weights_fail(w, want, atol, rtol)
 
 
 def _sterf_bar(d, e, dtype):
