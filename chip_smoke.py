@@ -18,7 +18,12 @@ per source, in parallel), then:
      sums bit for bit; the QL kernel at 64 eps ||T||_inf against its plain
      loop on the CPU), timing both, and the row update beside
      torch.matmul of a pre-formed Y (the product only); times one shift's
-     Sturm chain on one thread (the latency bound of a bisection trip) and
+     Sturm chain on one thread (the latency bound of a bisection trip),
+     holds the bisection tree (one launch: up to eight halvings of every
+     bracket) to its plain version bit for bit at a range solve's
+     brackets (B = 1, n = 16384, k = 64, depth 8) and the edges probes'
+     (B = 128, n = 4096, k = 8), in float64 and float32, and times each
+     launch beside the chain probe, and
      QL's rotation chain on one thread (the chain probe: QL's chain bound
      at n = 4096); prints the launch design of the root solve, the
      resident merge, the row update and the QL kernel (team and cluster
@@ -31,8 +36,10 @@ per source, in parallel), then:
      plain version at K = 16384 too and the post-pass at the levels the
      main path gives it (r = 2 at W = 4 x K = 4096 and W = 2 x K = 8192),
      and reads the FP64-pipe and all instructions of the hot loops of
-     zhat, the post-pass and the Sturm counts from their SASS (times at
-     the SM clock the Sturm chain probe measures); holds
+     zhat, the post-pass, the Sturm counts and the bisection tree from
+     their SASS (times at the SM clock the Sturm chain probe measures),
+     and from the tree's the node chains that issue within one chain's
+     latency (the depth rule's ``bisect_chains``); holds
      the deflation chain kernel to the plain chain run on the card, bit
      for bit, on real merge lanes (glued Wilkinson and uniform, W = 64 x
      K = 2048 and W = 1 x K = 16384, r = 3; r = K = 512) and the edge
@@ -54,7 +61,9 @@ per source, in parallel), then:
      n = 4096, and ``certify=True`` and ``precision="mixed"`` at n = 16384
      and on the uniform and glued-Wilkinson batches; every spectrum is
      held to the phase-3 reference at 64 eps and every range result to
-     the full BR solve at 8 eps, and each mixed solve is timed once (the
+     the full BR solve at 8 eps; the n = 16384 range solve must take no
+     single-halving count sweep, 2 Newton sweeps and at most 7 tree
+     launches; each mixed solve is timed once (the
      glued batch escalates to native re-solves and takes minutes); a
      range solve on the card is compared
      with the same solve on the CPU, bit for bit (reported, not a gate);
@@ -271,6 +280,33 @@ def _sturm_bytes(B, n, S, newton, itemsize=8):
             + (B * S * itemsize if newton else 0))
 
 
+def _tree_bytes(B, n, k, itemsize=8):
+    """m halvings' inputs read once (d, e2, pivmin, tol, int32 targets,
+    lo, hi) and outputs written once (lo, hi).  The node counts the
+    kernel also writes are its own by-product: no caller reads them."""
+    return B * (2 * n + 1) * itemsize + B * k * (4 + 4 * itemsize)
+
+
+def _live_halvings(lo, hi, tol, targets, counts, steps):
+    """Halvings that ``steps`` trips of the bisection loop take from the
+    brackets (lo, hi): the brackets still wider than tol at each step,
+    walked down the tree's node counts with the loop's rule (a bracket
+    that converged takes no more).  One count sweep of n rows each."""
+    import torch
+    node = torch.zeros(lo.shape + (1,), dtype=torch.int64,
+                       device=lo.device)
+    live_steps = 0
+    for _ in range(steps):
+        live = (hi - lo) > tol
+        live_steps += int(live.sum())
+        mid = 0.5 * (lo + hi)
+        above = torch.gather(counts, 2, node)[..., 0] > targets
+        hi = torch.where(above & live, mid, hi)
+        lo = torch.where(~above & live, mid, lo)
+        node = 2 * node + 1 + (~above)[..., None].to(torch.int64)
+    return live_steps
+
+
 def _secular_ops(kp, niter):
     """Operations per (root, pole) pair of the root solve: 1 (weight sum)
     + 3 (f(mid)) + 5 + 5 (the two model sweeps) + 6 per iteration + 4
@@ -410,6 +446,7 @@ def main() -> int:
     from repro_torch.kernels.secular_roots import secular_solve_cuda
     from repro_torch.kernels.sterf import sterf_cuda
     from repro_torch.kernels.sturm_count import (chain_probe_cuda,
+                                                 sturm_bisect_tree_cuda,
                                                  sturm_count_cuda,
                                                  sturm_count_newton_cuda)
     from repro_torch.kernels.zhat import zhat_reconstruct_cuda
@@ -886,12 +923,85 @@ def main() -> int:
     trip.update(chain_ms=chain_ms, chain_ns_row=chain_ms * 1e6 / trip["n"],
                 chain_cycles_row=cycles_row)
     trip_ms = trip["sturm_count"]["ms"]
+    newton_ms = trip["sturm_count_newton"]["ms"]
     print(f"[2 chain] one shift's chain on one thread (n=16384, f64): "
           f"{chain_ms:.4f} ms, {trip['chain_ns_row']:.2f} ns and "
           f"{cycles_row:.1f} SM cycles per row (SM clock over the sweep "
-          f"about {int(c_cycles) / (chain_ms * 1e3):.0f} MHz); one trip "
-          f"(S=64) {trip_ms:.4f} ms = {trip_ms / chain_ms:.3f}x this chain "
-          f"bound ({smi})")
+          f"about {int(c_cycles) / (chain_ms * 1e3):.0f} MHz); one count "
+          f"sweep of S=64 {trip_ms:.4f} ms = {trip_ms / chain_ms:.3f}x this "
+          f"chain bound, one Newton sweep {newton_ms:.4f} ms = "
+          f"{newton_ms / chain_ms:.3f}x ({smi})")
+
+    # The bisection tree: one launch walks ``depth`` halvings of every
+    # bracket.  Held to its plain version bit for bit (lo, hi and every
+    # node count) over the first three launches of a range solve's
+    # brackets -- B = 1, n = 16384, k = 64 (the bottom 64), depth 8 -- and
+    # of the edges probes' -- the B = 64 x 4096 uniform batch with its rows
+    # duplicated (targets 0..7 and 4088..4095), k = 8, the depth the rule
+    # gives 1024 brackets -- in float64 and float32; each launch's time
+    # beside the chain probe (its latency bound).
+    chains_c = tune.backend_defaults("cuda")["bisect_chains"]
+    Dt, Et = batches["uniform"]
+    tree_cases = {
+        "range": (d16[None], e16[None], np.arange(64)[None], 8),
+        "edges": (np.concatenate([Dt, Dt]), np.concatenate([Et, Et]),
+                  np.concatenate([np.tile(np.arange(8), (64, 1)),
+                                  np.tile(np.arange(4088, 4096), (64, 1))]),
+                  tune.bisect_depth(128 * 8, chains_c))}
+    for case, (D, E, tg, depth) in tree_cases.items():
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype).replace("torch.", "")
+            d = torch.tensor(D, dtype=dtype, device=dev)
+            e = torch.tensor(E, dtype=dtype, device=dev)
+            e2 = e * e
+            piv = bis._pivot_floor(e2)
+            glo, ghi = bis._gershgorin(d, e.abs(), piv)
+            tol = (2.0 * torch.finfo(dtype).eps
+                   * torch.maximum(glo.abs(), ghi.abs()) + 2.0 * piv)
+            targets = torch.tensor(tg, dtype=torch.int32, device=dev)
+            B, k = targets.shape
+            lo = glo.expand(B, k).contiguous()
+            hi = ghi.expand(B, k).contiguous()
+            run_k = lambda lo=lo, hi=hi: sturm_bisect_tree_cuda(  # noqa: E731
+                d, e2, piv[:, 0], tol[:, 0], targets, lo, hi, depth=depth,
+                steps=depth)
+            run_p = lambda lo=lo, hi=hi: bis.bisect_tree_plain(  # noqa: E731
+                d, e2, piv, tol, targets, lo, hi, depth=depth, steps=depth)
+            k_ms = _cuda_ms(torch, run_k)
+            p_ms = _cuda_ms(torch, run_p, 2)
+            err = 0.0
+            for trip_no in range(3):
+                ka, pa = run_k(lo, hi), run_p(lo, hi)
+                if trip_no == 0:           # the timed launch's halvings
+                    halvings = _live_halvings(lo, hi, tol, targets, ka[2],
+                                              depth)
+                same = all(torch.equal(a, b) for a, b in zip(ka, pa))
+                err = max(err, float((ka[0] - pa[0]).abs().max()),
+                          float((ka[1] - pa[1]).abs().max()))
+                if not same:
+                    raise AssertionError(
+                        f"sturm_bisect_tree {case} {tag} launch {trip_no}: "
+                        f"lo, hi or node counts differ from the plain tree")
+                lo, hi = ka[0], ka[1]
+            print(f"[2 kernel] sturm_bisect_tree {tag} {case} (B={B}, "
+                  f"n={d.shape[1]}, k={k}, depth={depth}): lo, hi and node "
+                  f"counts equal the plain tree over 3 launches True; "
+                  f"kernel {k_ms:.3f} ms plain {p_ms:.3f} ms")
+            if tag == "float64":
+                record[("tree", case)] = dict(
+                    B=B, n=d.shape[1], k=k, depth=depth, ms=k_ms,
+                    plain_ms=p_ms, max_abs_err=err, halvings=halvings)
+    for case, r in ((c, record[("tree", c)]) for c in tree_cases):
+        work_ms = _bound_ms(_sturm_ops(1, r["n"], r["halvings"], False),
+                            _tree_bytes(r["B"], r["n"], r["k"]),
+                            "float64")[0]
+        print(f"[2 chain] sturm_bisect_tree {case} (B={r['B']}, n={r['n']}, "
+              f"k={r['k']}, depth {r['depth']}: {r['depth']} halvings, "
+              f"{r['k'] * (2 ** r['depth'] - 1) * r['B']} node chains): "
+              f"{r['ms']:.4f} ms a launch = "
+              f"{r['ms'] / (chain_ms * r['n'] / trip['n']):.3f}x the chain "
+              f"probe's {r['n']} rows; bound of its {r['halvings']} live "
+              f"halvings {work_ms:.6f} ms ({smi})")
 
     # Instruction figures of zhat, the post-pass and the Sturm counts at
     # the table's shapes: each kernel's hot loop, read from its SASS
@@ -912,9 +1022,10 @@ def main() -> int:
         "zhat": per_item("zhat", "weights_kernelIdE"),
         "pass A": per_item("fused_update", "weights_kernelIdE"),
         "pass B": per_item("fused_update", "rows_kernelIdE"),
-        "sturm_count": per_item("sturm_count", "sturm_kernelIdLb0EE"),
-        "sturm_count_newton": per_item("sturm_count", "sturm_kernelIdLb1EE",
-                                       2)}
+        "sturm_count": per_item("sturm_count", "count_kernelIdLb0EE"),
+        "sturm_count_newton": per_item("sturm_count",
+                                       "count_kernelIdLb1EE", 2),
+        "sturm_bisect_tree": per_item("sturm_count", "tree_kernelIdE")}
     pa, pb = counts["pass A"], counts["pass B"]
     counts["fused_update"] = ((pa[0] + pb[0], pa[1] + pb[1]) if pa and pb
                               else None)
@@ -931,6 +1042,10 @@ def main() -> int:
                                     st["sturm_count_newton"]["ms"],
                                     "row",
                                     f"B={st['B']} n={st['n']} S={st['S']}")}
+    te = record[("tree", "edges")]
+    table["sturm_bisect_tree"] = (
+        te["B"] * te["k"] * (2 ** te["depth"] - 1) * te["n"], te["ms"], "row",
+        f"B={te['B']} n={te['n']} k={te['k']} depth={te['depth']}")
     instr_bounds = {name: _instr_bounds_ms(counts[name], items, sm_hz, sms)
                     for name, (items, *_) in table.items()}
     parts = []
@@ -946,6 +1061,16 @@ def main() -> int:
     print(f"[2 bound] hot loops read from the SASS, at the SM clock "
           f"{sm_hz / 1e6:.0f} MHz, {sms} SMs x 64 FP64 lanes and 128 issue "
           f"slots a cycle: " + "; ".join(parts) + f" ({smi})")
+    # The depth rule's chain count: node chains whose issue time fits
+    # under one chain's latency, from the tree loop's instructions a row.
+    if counts["sturm_bisect_tree"]:
+        fits = (sms * 128 * sm_hz * trip["chain_ns_row"] * 1e-9
+                / counts["sturm_bisect_tree"][1])
+        print(f"[2 bound] bisection tree: {fits:.0f} node chains issue "
+              f"within one chain's latency ({trip['chain_ns_row']:.2f} ns "
+              f"a row, {counts['sturm_bisect_tree'][1]:.2f} instructions a "
+              f"row); tune.backend_defaults('cuda')['bisect_chains'] = "
+              f"{chains_c} ({smi})")
 
     # QL's chain bound: the probe runs the kernel's rotation on one thread
     # with its rows in registers (the first PROBE_ROWS + 1 rows of phase
@@ -1121,7 +1246,8 @@ def main() -> int:
 
     kernels = (secular_solve_cuda, secular_postpass_cuda,
                resident_merge_cuda, deflate_chain_cuda)
-    sturm_kernels = (sturm_count_cuda, sturm_count_newton_cuda)
+    sturm_kernels = (sturm_count_cuda, sturm_count_newton_cuda,
+                     sturm_bisect_tree_cuda)
     try:
         for k in kernels + sturm_kernels:
             k.launches = 0
@@ -1227,8 +1353,9 @@ def main() -> int:
             robust[f"mixed {label}"] = (res, win.refinement_stats)
         sturm_launches = [k.launches for k in sturm_kernels]
         tree_launches = [k.launches for k in kernels]
-        print(f"[6 sturm] launches (sturm_count, sturm_count_newton): "
-              f"per n=16384 range solve (k=64) {per_range}; per certify "
+        print(f"[6 sturm] launches (sturm_count, sturm_count_newton, "
+              f"sturm_bisect_tree): per n=16384 range solve (k=64) "
+              f"{per_range}; per certify "
               f"sweep {per_cert}; phase total {sturm_launches}; merge "
               f"kernels (secular_roots, fused_update, resident_merge, "
               f"deflate_chain) in the phase (mixed and certified trees) "
@@ -1236,6 +1363,11 @@ def main() -> int:
         if min(sturm_launches) == 0:
             raise AssertionError(f"a Sturm kernel never launched on its "
                                  f"path: {sturm_launches}")
+        if not (per_range[0] == 0 and per_range[1] == 2
+                and 1 <= per_range[2] <= 7):
+            raise AssertionError(f"the n=16384 range solve launched "
+                                 f"{per_range}, not 0 count sweeps, 2 Newton "
+                                 f"sweeps and at most 7 tree trips")
         for label, (res, rstats) in robust.items():
             diag = res.diagnostics or {}
             tally = (f"certified {diag['certified']} of {diag['lanes']} "
@@ -1643,6 +1775,44 @@ def main() -> int:
                                  and counts["sturm_count_newton"][1]),
         "fp64_instr_bound_ms": instr_bounds["sturm_count_newton"][0],
         "issue_slot_ms": instr_bounds["sturm_count_newton"][1],
+        "sm_clock_mhz": sm_hz / 1e6})
+    # The tree launch replaces m halvings of every bracket: its bound is
+    # one count sweep a live halving (the run's own, B * k * m from the
+    # Gershgorin brackets), not the 2^m - 1 node sweeps the kernel spends
+    # on speculation, and the bytes of lo, hi and the inputs.
+    # ``chain_bound_ms`` is the chain probe over the problem's rows, the
+    # least time of any launch that walks the recurrence row by row.
+    tr, tedge = record[("tree", "range")], record[("tree", "edges")]
+    tree_bound = {}
+    for key, r in (("range", tr), ("edges", tedge)):
+        tree_bound[key] = _bound_ms(
+            _sturm_ops(1, r["n"], r["halvings"], False),
+            _tree_bytes(r["B"], r["n"], r["k"]), "float64")
+    out.append({
+        "name": "sturm_bisect_tree", "route": "cuda",
+        "source": "src/repro_torch/csrc/sturm_count.cu",
+        "replaces": "src/repro/kernels/sturm_count.py:63 (with the "
+                    "bisection loop of src/repro/core/bisect.py)",
+        "launches": int(sturm_launches[2]),
+        "max_abs_err": tr["max_abs_err"], "ms": tr["ms"],
+        "plain_ms": tr["plain_ms"], "bound_ms": tree_bound["range"][0],
+        "bound_by": tree_bound["range"][1], "library_ms": None,
+        "shape": f"B=1 n=16384 k=64 depth={tr['depth']} f64 (one launch: "
+                 f"{tr['depth']} halvings)",
+        "halvings": tr["halvings"],
+        "chain_bound_ms": chain_ms,
+        "launches_per_range_solve": int(per_range[2]),
+        "edges_shape": f"B=128 n=4096 k=8 depth={tedge['depth']} f64",
+        "edges_ms": tedge["ms"], "edges_plain_ms": tedge["plain_ms"],
+        "edges_bound_ms": tree_bound["edges"][0],
+        "edges_halvings": tedge["halvings"],
+        "edges_chain_bound_ms": chain_ms * tedge["n"] / trip["n"],
+        "fp64_per_row": (counts["sturm_bisect_tree"]
+                         and counts["sturm_bisect_tree"][0]),
+        "instructions_per_row": (counts["sturm_bisect_tree"]
+                                 and counts["sturm_bisect_tree"][1]),
+        "fp64_instr_bound_ms": instr_bounds["sturm_bisect_tree"][0],
+        "issue_slot_ms": instr_bounds["sturm_bisect_tree"][1],
         "sm_clock_mhz": sm_hz / 1e6})
     zb, zb_by = _bound_ms(zr["flops"], zr["nbytes"], "float64")
     z16 = record[("zhat", 16384)]

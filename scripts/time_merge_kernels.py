@@ -2,9 +2,10 @@
 """Time the port's hand-written kernels on one CUDA card, at the shapes of
 the kernel table in PERF.md and at the levels of the solves they serve.
 
-    python3 scripts/time_merge_kernels.py [--kernels merge|two_pass|postpass]
+    python3 scripts/time_merge_kernels.py [--kernels merge|two_pass|postpass|
+                                                     sturm]
                                           [--src DIR] [--label NAME]
-                                          [--sweep-clusters]
+                                          [--sweep-clusters] [--sweep]
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (for
 instance an unpacked parent commit: ``git archive <commit> src | tar -x
@@ -81,6 +82,32 @@ the card's SMs x 64 FP64 lanes (``fp64_instr_bound_ms``) and x 128
 issue slots (``issue_slot_ms``) an SM per clock, at the SM clock
 measured in this call (the Sturm chain probe's clock64 cycles over its
 time); None where the toolkit has no cuobjdump.
+
+``--kernels sturm``: the Sturm-count kernels (``csrc/sturm_count.cu``):
+
+  * the count and the count + derivative (Newton) sweeps at the certify
+    shape (B = 64, n = 4096, S = 8192 sorted shifts across the spectrum,
+    the uniform batch of chip_smoke.py), at a bisection trip's (B = 1,
+    n = 16384, S = 64), at the certify sweep of n = 16384 (B = 1,
+    S = 32768) and at B = 64, n = 4096 with S = 512, 1024 and 2048
+    (mid-sized refine and certify sweeps), each with its bound
+    (operations over 34 TFLOP/s or bytes over 3.35 TB/s, as in
+    chip_smoke.py) and the Newton layout the version picks, and, at the
+    certify shape, the FP64-pipe and all instructions a row of the
+    version's hot loop (``scripts/sass.py``) as FP64-pipe bound and
+    issue-slot time;
+  * the bisection tree, where the version has one: one launch from the
+    Gershgorin brackets at the range solve's shape (B = 1, n = 16384,
+    bottom k = 64, depth 8), the edges probes' (B = 128, n = 4096 -- the
+    uniform batch twice --, k = 8) and ``method="bisect"``'s (B = 1,
+    n = 4096, k = 4096), at the depths ``tune.bisect_depth`` gives
+    (``--sweep``: at every depth 1-8, with the time per halving; and the
+    Newton sweep with two threads a shift and with one at each of the
+    shapes above and at B = 64, n = 4096 with S = 16 ... 4096 shifts a
+    problem);
+  * the chain probe (one shift's chain on one thread, n = 16384): the
+    latency bound of a trip, beside which each trip and tree launch is
+    printed as a ratio (scaled to its n).
 
 The row update's origin and tau come from the version's own root solve
 and its weights from its own zhat kernel.  Its bound is the larger of its
@@ -242,11 +269,12 @@ def _sm_clock_hz(dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
-    ap.add_argument("--kernels", choices=("merge", "two_pass", "postpass"),
-                    default="merge")
+    ap.add_argument("--kernels", choices=("merge", "two_pass", "postpass",
+                                          "sturm"), default="merge")
     ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--sweep-clusters", action="store_true")
+    ap.add_argument("--sweep", action="store_true")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -259,6 +287,8 @@ def main() -> int:
         return _time_two_pass(args.label, dev, smi)
     if args.kernels == "postpass":
         return _time_postpass(args.label, dev, smi)
+    if args.kernels == "sturm":
+        return _time_sturm(args.label, dev, smi, args.sweep)
     return _time_merge(args, dev, smi)
 
 
@@ -497,6 +527,143 @@ def _time_two_pass(label, dev, smi):
             emit(kernel="sterf", shape=f"B=1 n={n} uniform f64",
                  regime=regime, ms=ms, rotations=rot,
                  ns_per_rotation=ms * 1e6 / rot)
+    return 0
+
+
+def _sturm_hot_loop(build, newton):
+    """(FP64-pipe, all) instructions a row of the certify sweep's hot loop:
+    this version's count kernel (one shift a thread), or the parent's
+    ``sturm_kernel``."""
+    for kernel in (f"count_kernelIdLb{int(newton)}EE",
+                   f"sturm_kernelIdLb{int(newton)}EE"):
+        got = _instructions_per_item(build, "sturm_count", kernel,
+                                     2 if newton else 1)
+        if got:
+            return got
+    return None
+
+
+def _newton_ms_by_layout(sc, d, e2, x, piv):
+    """Times of one count + derivative sweep with two threads a shift
+    ("split") and one ("one"), through the wrapper's private launch."""
+    return {("split" if split else "one"): median_ms(
+        lambda split=split: sc._launch(
+            sc.sturm_count_newton_cuda, "sturm_count_newton", True, d, e2,
+            x, piv, split=split))
+        for split in (True, False)}
+
+
+def _time_sturm(label, dev, smi, sweep=False):
+    import numpy as np
+    import torch
+    from repro_torch.core import bisect as bis
+    from repro_torch.core import make_family, make_family_batch, tune
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import sturm_count as sc
+    _build.build_all(["sturm_count"])
+    clock = _sm_clock_hz(dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def emit(**rec):
+        print(json.dumps(dict(label=label, card=smi, **rec)), flush=True)
+
+    d16, e16 = make_family("uniform", 16384, seed=0)
+    Du, Eu = make_family_batch("uniform", 4096, 64, seed0=100)
+    t = lambda a: torch.tensor(a, device=dev)  # noqa: E731
+    d64, e64 = t(d16), t(e16) ** 2
+    piv64 = float(bis._pivot_floor(e64[None])[0, 0])
+    chain_ms = median_ms(lambda: sc.chain_probe_cuda(d64, e64, 0.0, piv64))
+    emit(kernel="chain_probe", shape="n=16384 f64", ms=chain_ms,
+         ns_per_row=chain_ms * 1e6 / 16384)
+
+    # The certify shape, a trip's, the certify sweep at n = 16384 (2n
+    # shifts of one problem) and mid-sized sweeps of the batch (refine
+    # sweeps, certify of a partial spectrum): the last two span the
+    # crossover from one shift a thread to two.
+    for B, D, E, S in ((64, Du, Eu, 8192), (1, d16[None], e16[None], 64),
+                       (1, d16[None], e16[None], 32768), (64, Du, Eu, 512),
+                       (64, Du, Eu, 1024), (64, Du, Eu, 2048)):
+        d, e2 = t(D), t(E) ** 2
+        n = d.shape[1]
+        piv = bis._pivot_floor(e2)
+        lo, hi = float(d.min()) - 2.5, float(d.max()) + 2.5
+        x = torch.sort(lo + (hi - lo) * torch.rand(
+            B, S, dtype=torch.float64, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(S)),
+            dim=1).values
+        for newton in (False, True):
+            fn = sc.sturm_count_newton_cuda if newton else sc.sturm_count_cuda
+            ms = median_ms(lambda: fn(d, e2, x, piv[:, 0]))
+            ops = float(B) * S * n * (7 if newton else 3)
+            nbytes = (B * (2 * n + S) * 8 + B * S * 4
+                      + (B * S * 8 if newton else 0))
+            rec = dict(kernel="sturm_count_newton" if newton
+                       else "sturm_count", shape=f"B={B} n={n} S={S} f64",
+                       ms=ms, bound_ms=max(ops / PEAK_FP64,
+                                           nbytes / PEAK_BYTES) * 1e3,
+                       chain_ratio=ms / (chain_ms * n / 16384))
+            if newton and hasattr(sc, "launch_shape"):
+                rec["split"] = sc.launch_shape(B, S, sms, newton=True)[0]
+            if newton and sweep:
+                rec["ms_by_layout"] = _newton_ms_by_layout(sc, d, e2, x,
+                                                           piv[:, 0])
+            if B > 1 and S == 8192:
+                instr = _sturm_hot_loop(_build, newton)
+                rows = float(B) * S * n
+                rec.update(
+                    fp64_per_row=instr and instr[0],
+                    instructions_per_row=instr and instr[1],
+                    fp64_instr_bound_ms=instr and (
+                        instr[0] * rows / (sms * 64 * clock) * 1e3),
+                    issue_slot_ms=instr and (
+                        instr[1] * rows / (sms * 128 * clock) * 1e3))
+            emit(**rec)
+
+    if sweep:
+        # Where the Newton sweep's two threads a shift give way to one, at
+        # B = 64 x 4096 and S shifts a problem, from a trip's few towards
+        # the certify sweep's 8192.
+        d, e2 = t(Du), t(Eu) ** 2
+        piv = bis._pivot_floor(e2)
+        for S in (16, 64, 128, 256, 384, 768, 1536, 4096):
+            x = torch.sort(-2.0 + 4.0 * torch.rand(
+                64, S, dtype=torch.float64, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(S)),
+                dim=1).values
+            emit(kernel="sturm_count_newton", shape=f"B=64 n=4096 S={S} f64",
+                 split=sc.launch_shape(64, S, sms, newton=True)[0],
+                 ms_by_layout=_newton_ms_by_layout(sc, d, e2, x, piv[:, 0]))
+
+    if not hasattr(sc, "sturm_bisect_tree_cuda"):
+        return 0
+    chains = tune.backend_defaults("cuda")["bisect_chains"]
+    for case, D, E, tg in (
+            ("range", d16[None], e16[None], np.arange(64)[None]),
+            ("edges", np.concatenate([Du, Du]), np.concatenate([Eu, Eu]),
+             np.concatenate([np.tile(np.arange(8), (64, 1)),
+                             np.tile(np.arange(4088, 4096), (64, 1))])),
+            ("bisect", Du[:1], Eu[:1], np.arange(4096)[None])):
+        d, e = t(D), t(E)
+        e2 = e * e
+        piv = bis._pivot_floor(e2)
+        glo, ghi = bis._gershgorin(d, e.abs(), piv)
+        tol = (2.0 * torch.finfo(torch.float64).eps
+               * torch.maximum(glo.abs(), ghi.abs()) + 2.0 * piv)
+        targets = torch.tensor(tg, dtype=torch.int32, device=dev)
+        B, k = targets.shape
+        n = d.shape[1]
+        depth = tune.bisect_depth(B * k, chains)
+        lo = glo.expand(B, k).contiguous()
+        hi = ghi.expand(B, k).contiguous()
+        for m in (range(1, sc.MAX_DEPTH + 1) if sweep else (depth,)):
+            ms = median_ms(lambda: sc.sturm_bisect_tree_cuda(
+                d, e2, piv[:, 0], tol[:, 0], targets, lo, hi, depth=m,
+                steps=m))
+            emit(kernel="sturm_bisect_tree", case=case,
+                 shape=f"B={B} n={n} k={k} depth={m} f64", ms=ms,
+                 picked=m == depth, node_chains=B * k * (2 ** m - 1),
+                 chain_ratio=ms / (chain_ms * n / 16384),
+                 ms_per_halving=ms / m)
     return 0
 
 

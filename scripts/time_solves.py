@@ -4,7 +4,7 @@ each solve that its merge levels' deflation chain, weights (zhat) and
 fused post-pass take.
 
     python3 scripts/time_solves.py [--src DIR] [--label NAME] [--mixed]
-                                   [--compare]
+                                   [--compare] [--sturm] [--reps N]
 
 ``--src`` imports ``repro_torch`` from another checkout's ``src`` (for
 instance an unpacked parent commit: ``git archive <commit> src | tar -x
@@ -16,7 +16,8 @@ Solves, float64, inputs as ``chip_smoke.py`` makes them:
 ``eigvalsh_tridiagonal`` at n = 16384 (uniform, seed 0) and at n = 4096
 (the first glued-Wilkinson problem of the batch), and
 ``eigvalsh_tridiagonal_batch`` at B = 64 x 4096 (uniform and glued
-Wilkinson, seed0 100): CUDA events, median of 5 after a warm-up.  Then
+Wilkinson, seed0 100): CUDA events, median of 5 (``--reps``) after a
+warm-up.  Then
 one more run of each with ``merge._deflate_level``,
 ``ops.zhat_reconstruct_batched`` and ``ops.secular_postpass_batched``
 each timed on the host clock between two ``torch.cuda.synchronize()``
@@ -30,6 +31,12 @@ post-pass's time in all, beside the solve's wall time in that run.
 glued-Wilkinson B = 64 x 4096 batch with ``precision="mixed"``, whose
 ladder re-solves every problem natively one at a time (minutes on a
 version without the chain kernel).
+``--sturm`` times the Sturm-count path in place of the solves above:
+``eigvalsh_tridiagonal_range`` of the bottom 64 and of the band [8160,
+8224) at n = 16384, ``kind="edges"`` (k = 8) on the uniform B = 64 x 4096
+batch, ``method="bisect"`` at n = 4096 (its first problem), and
+``certify=True`` and ``precision="mixed"`` at n = 16384; each with the
+launches of each Sturm kernel one solve makes.
 Every line printed is one JSON object with the card's name and power
 limit.
 """
@@ -78,6 +85,8 @@ def main() -> int:
     ap.add_argument("--label", default="this tree")
     ap.add_argument("--mixed", action="store_true")
     ap.add_argument("--compare", action="store_true")
+    ap.add_argument("--sturm", action="store_true")
+    ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -97,6 +106,8 @@ def main() -> int:
 
     d16, e16 = make_family("uniform", 16384, seed=0)
     Du, Eu = make_family_batch("uniform", 4096, 64, seed0=100)
+    if args.sturm:
+        return _time_sturm(emit, d16, e16, Du, Eu, args.reps)
     Dg, Eg = make_family_batch("glued_wilkinson", 4096, 64, seed0=100)
     solves = {
         "n=16384 uniform": lambda: eigvalsh_tridiagonal(d16, e16),
@@ -125,7 +136,7 @@ def main() -> int:
         return run
 
     for name, fn in solves.items():
-        ms = median_ms(fn)
+        ms = median_ms(fn, args.reps)
         spied = {(mrg, "_deflate_level"): [],
                  (ops, "zhat_reconstruct_batched"): [],
                  (ops, "secular_postpass_batched"): []}
@@ -158,6 +169,35 @@ def main() -> int:
         torch.cuda.synchronize()
         emit(solve="B=64 x 4096 glued_wilkinson precision=mixed (one run)",
              ms=(time.perf_counter() - t0) * 1e3)
+    return 0
+
+
+def _time_sturm(emit, d16, e16, Du, Eu, reps):
+    from repro_torch.core import (SolveRequest, eigvalsh_tridiagonal,
+                                  eigvalsh_tridiagonal_range, execute_request)
+    from repro_torch.kernels import sturm_count as sc
+    kernels = [getattr(sc, name) for name in (
+        "sturm_count_cuda", "sturm_count_newton_cuda",
+        "sturm_bisect_tree_cuda") if hasattr(sc, name)]
+    solves = {
+        "range bottom 64, n=16384": lambda: eigvalsh_tridiagonal_range(
+            d16, e16, il=0, iu=63),
+        "range band [8160, 8224), n=16384": lambda: (
+            eigvalsh_tridiagonal_range(d16, e16, il=8160, iu=8223)),
+        "edges k=8, B=64 x 4096": lambda: execute_request(SolveRequest(
+            d=Du, e=Eu, kind="edges", knobs={"k": 8})),
+        "bisect, n=4096": lambda: eigvalsh_tridiagonal(Du[0], Eu[0],
+                                                       method="bisect"),
+        "certify, n=16384": lambda: eigvalsh_tridiagonal(d16, e16,
+                                                         certify=True),
+        "mixed, n=16384": lambda: eigvalsh_tridiagonal(d16, e16,
+                                                       precision="mixed")}
+    for name, fn in solves.items():
+        ms = median_ms(fn, reps)
+        before = [k.launches for k in kernels]
+        fn()
+        emit(solve=name, ms=ms, launches={
+            k.__name__: k.launches - b for k, b in zip(kernels, before)})
     return 0
 
 

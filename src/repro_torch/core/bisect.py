@@ -8,9 +8,13 @@
     kernel on CUDA tensors; ``_count_and_newton`` is the same sweep plus
     its derivative sum (``ops.count_and_newton_batched``).
   * ``_slice_targets`` -- all requested roots bisect their brackets at
-    once (one count sweep refines every interval), then a short
-    safeguarded Newton polish.  JAX's ``lax.while_loop`` is a host loop
-    here that checks convergence every ``_CHECK_EVERY`` trips.
+    once, then a short safeguarded Newton polish.  JAX's
+    ``lax.while_loop`` is a host loop here that checks convergence every
+    ``_CHECK_EVERY`` halvings.  Each launch takes m halvings of every
+    bracket (``bisect_tree_plain``, the ``sturm_bisect_tree`` kernel on
+    the card): the whole depth-m bisection tree is counted at once and
+    walked with the loop's own rule, so the result is the loop's bit for
+    bit, whatever m; m comes from ``tune.bisect_depth`` (1 on the CPU).
   * ``eigvalsh_tridiagonal_range`` -- select-by-index / select-by-value,
     through the request core and ``plan.RangePlan``.
   * ``certify_spectrum`` / ``refine_clusters`` -- the robustness layer's
@@ -33,7 +37,8 @@ import torch
 
 from repro_torch.core import guard as _guard
 from repro_torch.core.instrument import SolveCounter
-from repro_torch.core.tune import resolve_device
+from repro_torch.core.tune import (backend_defaults, bisect_depth,
+                                   resolve_device)
 
 # Bisection halvings cap.  The loop exits as soon as every bracket is
 # below its tolerance (~53 + log2(spread/scale) halvings at float64); the
@@ -63,10 +68,11 @@ _REFINE_TRIPS = 4
 # in the pure-bisection worst case, the budget of DEFAULT_MAX_BISECT.
 _REFINE_MAX_LAUNCHES = 24
 
-# Bisection trips between two convergence checks of the host loop.  Each
-# check is one host sync; converged brackets freeze, so the trips run
-# after the last bracket converged change nothing, and a check every
-# trip gives bit-identical results (tests/test_torch_bisect.py).
+# Bisection halvings between two convergence checks of the host loop
+# (rounded up to whole launches of the tree's depth).  Each check is one
+# host sync; converged brackets freeze, so the halvings run after the
+# last bracket converged change nothing, and a check every halving gives
+# bit-identical results (tests/test_torch_bisect.py).
 _CHECK_EVERY = 8
 
 # One build per (executor, batch, lane width, dtype, device) shape of the
@@ -151,6 +157,45 @@ def _count_and_newton(d, e2, x, pivmin):
     return cnt, s
 
 
+def bisect_tree_plain(d, e2, pivmin, tol, targets, lo, hi, *, depth: int,
+                      steps: int):
+    """``steps`` <= ``depth`` halvings of every bisection bracket in one
+    sweep: the plain version of the ``sturm_bisect_tree`` kernel.
+
+    d: (B, n); e2: (B, n-1); pivmin, tol: (B, 1); targets: (B, k) int32;
+    lo, hi: (B, k).  The 2^depth - 1 midpoints of each bracket's
+    bisection tree (heap order: node i's children are 2i + 1 and 2i + 2,
+    each the ``0.5 * (a + b)`` of its interval, as the loop forms it) are
+    counted in ONE :func:`sturm_count_plain` sweep; then each bracket
+    walks ``steps`` levels down with the host loop's rule (live =
+    (hi - lo) > tol; above = count(mid) > target; hi = mid where above and
+    live, lo = mid where not above and live).  Every midpoint on a
+    bracket's path is the one the loop would form, so the result equals
+    ``steps`` trips of the loop bit for bit.  Returns (lo, hi, counts
+    (B, k, 2^depth - 1) int32).
+    """
+    B, k = targets.shape
+    a, b = lo[..., None], hi[..., None]
+    mids = []
+    for _ in range(depth):                 # one level of the tree a pass
+        mid = 0.5 * (a + b)
+        mids.append(mid)
+        a = torch.stack([a, mid], dim=-1).reshape(B, k, -1)
+        b = torch.stack([mid, b], dim=-1).reshape(B, k, -1)
+    shifts = torch.cat(mids, dim=-1)                      # (B, k, nodes)
+    counts = sturm_count_plain(d, e2, shifts.reshape(B, -1), pivmin
+                               ).reshape(shifts.shape)
+    node = torch.zeros((B, k, 1), dtype=torch.int64, device=d.device)
+    for _ in range(steps):
+        mid = 0.5 * (lo + hi)
+        above = torch.gather(counts, 2, node)[..., 0] > targets
+        live = (hi - lo) > tol
+        hi = torch.where(above & live, mid, hi)
+        lo = torch.where(~above & live, mid, lo)
+        node = 2 * node + 1 + (~above)[..., None].to(torch.int64)
+    return lo, hi, counts
+
+
 def _gershgorin(d, e_abs, pivmin):
     """Per-problem Gershgorin enclosure (glo, ghi), each (B, 1), widened
     by one pivot floor so count(glo) <= j < count(ghi) holds."""
@@ -169,12 +214,13 @@ def _slice_targets(d, e, targets, *, maxiter: int = DEFAULT_MAX_BISECT,
 
     d: (B, n); e: (B, n-1); targets: (B, k) int32 ascending indices in
     [0, n), all on one device.  Every B x k bracket starts at its
-    problem's Gershgorin bounds; each trip runs ONE batched Sturm sweep at
-    the k midpoints and halves each live bracket on its own count, until
-    the widest bracket converges or ``maxiter`` trips ran.  Converged
-    brackets freeze, so a root's value does not depend on how long the
-    others iterate.  A safeguarded Newton polish follows.  Returns (B, k)
-    eigenvalues.
+    problem's Gershgorin bounds; each halving counts the k midpoints and
+    halves each live bracket on its own count, until the widest bracket
+    converges or ``maxiter`` halvings ran.  Converged brackets freeze, so
+    a root's value does not depend on how long the others iterate.  One
+    launch takes ``tune.bisect_depth`` halvings for the device and B * k
+    (the bisection tree: the same bits as one halving a launch).  A
+    safeguarded Newton polish follows.  Returns (B, k) eigenvalues.
     """
     from repro_torch.kernels import ops as _ops  # deferred: ops imports us
     dtype = d.dtype
@@ -186,17 +232,20 @@ def _slice_targets(d, e, targets, *, maxiter: int = DEFAULT_MAX_BISECT,
            * scale.clamp(min=torch.finfo(dtype).tiny) + 2.0 * pivmin)
 
     B, k = targets.shape
+    depth = bisect_depth(B * k, backend_defaults(
+        d.device.type)["bisect_chains"])
     lo = glo.expand(B, k)
     hi = ghi.expand(B, k)
     it = 0
     while it < maxiter and bool(((hi - lo) > tol).any()):
-        for _ in range(min(_CHECK_EVERY, maxiter - it)):
-            mid = 0.5 * (lo + hi)
-            above = _ops.sturm_count_batched(d, e2, mid, pivmin) > targets
-            live = (hi - lo) > tol
-            hi = torch.where(above & live, mid, hi)
-            lo = torch.where(~above & live, mid, lo)
-            it += 1
+        for _ in range(-(-_CHECK_EVERY // depth)):
+            if it == maxiter:
+                break
+            steps = min(depth, maxiter - it)
+            lo, hi, _ = _ops.bisect_tree_batched(d, e2, pivmin, tol, targets,
+                                                 lo, hi, depth=depth,
+                                                 steps=steps)
+            it += steps
     x = 0.5 * (lo + hi)
 
     for _ in range(polish):

@@ -29,19 +29,39 @@ _BACKEND: str | None = None
 # threshold.
 RESIDENT_THRESHOLD_CUDA = 2048
 
+# Sturm chains whose issue time still fits under one chain's latency on
+# the card: the bisection tree (csrc/sturm_count.cu) counts this many node
+# chains in about the time of one.  132 SMs x 128 issue slots a cycle x
+# 1.926 GHz x 77.61 ns (one row of the chain, the chain probe) / 37.62
+# instructions a row of the tree's loop (its SASS), about 67k
+# (chip_smoke.py's ``[2 bound] bisection tree`` line re-derives it).  On
+# an H100 the depths it gives (8 for a k = 64 range solve, 6 for the
+# edges probes of B = 64 x 4096, 4 for ``method="bisect"`` at n = 4096)
+# were also the fastest per halving of all depths 1-8
+# (scripts/time_merge_kernels.py --kernels sturm --sweep).
+BISECT_CHAINS_CUDA = 67000
+
+# Deepest bisection tree one launch counts (kernels/sturm_count.MAX_DEPTH).
+MAX_BISECT_DEPTH = 8
+
 _DEFAULTS = {
     # CPU: the plain torch versions.  As in the JAX package, everything
     # streams (stream_threshold 0) and the resident single-dispatch merge
     # is off (resident_threshold 0): on the CPU its dense (K, K) tile is
     # pure memory overhead.
+    # bisect_chains 0: the CPU's bisection runs one halving a sweep (depth
+    # 1), the plain host loop of the JAX package.
     "cpu": {"leaf": 32, "chunk": 256, "stream_threshold": 0,
-            "resident_threshold": 0, "deflate_budget": 64, "niter": 16},
+            "resident_threshold": 0, "deflate_budget": 64, "niter": 16,
+            "bisect_chains": 0},
     # CUDA: the hand-written kernels tile the pole axis themselves and
     # have no dense mode, so stream_threshold selects nothing there (0).
-    # resident_threshold is the shared-memory fit derived above.
+    # resident_threshold is the shared-memory fit derived above, and
+    # bisect_chains the chain count under one chain's latency.
     "cuda": {"leaf": 32, "chunk": 256, "stream_threshold": 0,
              "resident_threshold": RESIDENT_THRESHOLD_CUDA,
-             "deflate_budget": 64, "niter": 16},
+             "deflate_budget": 64, "niter": 16,
+             "bisect_chains": BISECT_CHAINS_CUDA},
 }
 
 
@@ -64,6 +84,15 @@ def backend_defaults(backend: str | None = None) -> dict:
         raise ValueError(f"no knob defaults for device type {backend!r}; "
                          f"the port runs on {tuple(_DEFAULTS)}")
     return dict(_DEFAULTS[backend])
+
+
+def bisect_depth(brackets: int, chains: int) -> int:
+    """Halvings a bisection launch takes for ``brackets`` brackets when
+    ``chains`` chains cost the time of one: the deepest tree whose
+    brackets * (2^m - 1) node chains fit, m = floor(log2(chains /
+    brackets + 1)), within [1, MAX_BISECT_DEPTH]."""
+    m = (chains // max(1, brackets) + 1).bit_length() - 1
+    return max(1, min(MAX_BISECT_DEPTH, m))
 
 
 def resolve_device(device=None) -> torch.device:

@@ -30,7 +30,8 @@ from repro_torch.kernels.fused_update import secular_postpass_cuda
 from repro_torch.kernels.resident_merge import resident_merge_cuda
 from repro_torch.kernels.secular_roots import secular_solve_cuda
 from repro_torch.kernels.sterf import sterf_cuda
-from repro_torch.kernels.sturm_count import (sturm_count_cuda,
+from repro_torch.kernels.sturm_count import (sturm_bisect_tree_cuda,
+                                             sturm_count_cuda,
                                              sturm_count_newton_cuda)
 from repro_torch.kernels.zhat import zhat_reconstruct_cuda
 
@@ -171,6 +172,23 @@ def count_and_newton_batched(d, e2, x, pivmin):
                                        x.contiguous(),
                                        pivmin.reshape(-1).contiguous())
     return _bis._count_and_newton(d, e2, x, pivmin.reshape(-1, 1))
+
+
+def bisect_tree_batched(d, e2, pivmin, tol, targets, lo, hi, *, depth: int,
+                        steps: int):
+    """``steps`` <= ``depth`` halvings of every bisection bracket in one
+    sweep of its depth-``depth`` bisection tree: d (B, n); e2 (B, n-1);
+    pivmin, tol (B, 1) or (B,); targets (B, k) int32; lo, hi (B, k).
+    Returns (lo, hi, node counts (B, k, 2^depth - 1) int32), the same bits
+    as ``steps`` trips of the bisection host loop."""
+    if _on_card(d):
+        return sturm_bisect_tree_cuda(
+            d.contiguous(), e2.contiguous(), pivmin.reshape(-1).contiguous(),
+            tol.reshape(-1).contiguous(), _int32(targets), lo.contiguous(),
+            hi.contiguous(), depth=depth, steps=steps)
+    return _bis.bisect_tree_plain(d, e2, pivmin.reshape(-1, 1),
+                                  tol.reshape(-1, 1), targets, lo, hi,
+                                  depth=depth, steps=steps)
 
 
 def _as_scalar(x, like, dtype=None):

@@ -32,7 +32,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import (eigvalsh_tridiagonal,  # noqa: E402
-                              eigvalsh_tridiagonal_batch, make_family,
+                              eigvalsh_tridiagonal_batch,
+                              eigvalsh_tridiagonal_range, make_family,
                               make_family_batch)
 from repro_torch.core import br_dc as tbr  # noqa: E402
 from repro_torch.core import merge as tmerge  # noqa: E402
@@ -51,7 +52,8 @@ from repro_torch.kernels import sterf as qlk  # noqa: E402
 from repro_torch.kernels.sterf import sterf_cuda  # noqa: E402
 from repro_torch.kernels.zhat import zhat_reconstruct_cuda  # noqa: E402
 from repro_torch.kernels.sturm_count import (  # noqa: E402
-    chain_probe_cuda, sturm_count_cuda, sturm_count_newton_cuda)
+    chain_probe_cuda, launch_shape, sturm_bisect_tree_cuda, sturm_count_cuda,
+    sturm_count_newton_cuda)
 from repro_torch.core import bisect as tbis  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
@@ -375,6 +377,91 @@ def test_chain_probe_walks_the_count_kernels_recurrence(cuda_device, n):
         c, cycles = chain_probe_cuda(d[0], e2[0].contiguous(),
                                      float(x[0, j]), float(piv[0, 0]))
         assert int(c) == int(cnt[0, j]) and int(cycles) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,n,S,split", [
+    (3, 1030, 130, True), (2, 2500, 97, True), (1, 9, 1, True),
+    (40, 1100, 700, False), (128, 200, 1100, False)])
+def test_sweep_layouts_match_plain_on_card(cuda_device, dtype, B, n, S,
+                                           split):
+    """The count and the Newton sweep in both of its layouts -- two
+    threads a shift and one, which the wrapper picks from these shapes on
+    either side of its crossover -- at ragged S, n across several row
+    tiles: counts and derivative sums equal the plain versions bit for
+    bit.  In float32 a pivot at the floor sends r = q'/q past the range
+    and the sum to NaN (one lane here, on both sides): the NaNs must sit
+    in the same lanes, whatever their payloads."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert launch_shape(B, S, sms, newton=True)[0] == split
+    d, e2, x, piv = _sturm_problem(B, n, S, seed=B + n + S, dtype=dtype,
+                                   device=cuda_device)
+    x[:, -1] = x[:, 0]
+    cnt = sturm_count_cuda(d, e2, x, piv[:, 0])
+    assert torch.equal(cnt.cpu(), tbis.sturm_count_plain(
+        d.cpu(), e2.cpu(), x.cpu(), piv.cpu()))
+    c2, s2 = sturm_count_newton_cuda(d, e2, x, piv[:, 0])
+    c3, s3 = tbis._count_and_newton(d.cpu(), e2.cpu(), x.cpu(), piv.cpu())
+    assert torch.equal(c2.cpu(), c3)
+    torch.testing.assert_close(s2.cpu(), s3, rtol=0, atol=0, equal_nan=True)
+
+
+def _tree_start(B, n, k, seed, dtype, device):
+    """Brackets as ``_slice_targets`` starts them, for random targets."""
+    d, e2, _, piv = _sturm_problem(B, n, 1, seed=seed, dtype=dtype,
+                                   device=device)
+    glo, ghi = tbis._gershgorin(d, e2.sqrt(), piv)
+    scale = torch.maximum(glo.abs(), ghi.abs())
+    tol = 2.0 * torch.finfo(dtype).eps * scale + 2.0 * piv
+    rng = np.random.default_rng(seed)
+    targets = torch.tensor(np.sort(rng.integers(0, n, (B, k)), axis=1),
+                           dtype=torch.int32, device=device)
+    return (d, e2, piv, tol, targets, glo.expand(B, k).contiguous(),
+            ghi.expand(B, k).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("B,n,k,depth,steps", [
+    (2, 1030, 37, 3, 3), (1, 2500, 5, 8, 8), (3, 1, 3, 2, 1),
+    (2, 300, 70, 5, 4), (1, 4097, 3, 1, 1), (2, 65, 9, 7, 7)])
+def test_bisect_tree_kernel_matches_plain_on_card(cuda_device, dtype, B, n,
+                                                  k, depth, steps):
+    """n not a multiple of the row tile and k not a multiple of a block's
+    brackets: lo, hi and every node count equal the plain tree's bit for
+    bit, launch after launch (brackets converge and freeze on the way:
+    9 launches of ``steps`` halvings)."""
+    state = _tree_start(B, n, k, seed=n + k, dtype=dtype,
+                        device=cuda_device)
+    d, e2, piv, tol, targets, lo, hi = state
+    cpu = [t.cpu() for t in state]
+    for _ in range(9):
+        lo, hi, counts = sturm_bisect_tree_cuda(
+            d, e2, piv[:, 0], tol[:, 0], targets, lo, hi, depth=depth,
+            steps=steps)
+        lo_p, hi_p, counts_p = tbis.bisect_tree_plain(
+            *cpu[:5], cpu[5], cpu[6], depth=depth, steps=steps)
+        assert torch.equal(counts.cpu(), counts_p)
+        assert torch.equal(lo.cpu(), lo_p) and torch.equal(hi.cpu(), hi_p)
+        cpu[5], cpu[6] = lo_p, hi_p
+
+
+@pytest.mark.gpu
+def test_range_solve_launches_at_most_seven_trees_and_two_sweeps(
+        cuda_device):
+    """The n = 16384 bottom-64 range solve: the tree takes 8 halvings a
+    launch (64 brackets), so bisection needs at most 7 launches, and the
+    Newton polish its 2 sweeps; no single-halving count sweep runs."""
+    d, e = make_family("uniform", 16384, seed=0)
+    eigvalsh_tridiagonal(d[:64], e[:63], method="bisect")   # warm build
+    kernels = (sturm_bisect_tree_cuda, sturm_count_newton_cuda,
+               sturm_count_cuda)
+    before = [k.launches for k in kernels]
+    lam = eigvalsh_tridiagonal_range(d, e, il=0, iu=63)
+    tree, newton, count = (k.launches - b for k, b in zip(kernels, before))
+    assert lam.shape == (64,) and bool(torch.isfinite(lam).all())
+    assert 1 <= tree <= 7 and newton == 2 and count == 0
 
 
 def test_cpu_tensors_take_the_plain_two_pass_and_ql_versions():
