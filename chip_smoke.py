@@ -42,9 +42,11 @@ per source, in parallel), then:
      latency (the depth rule's ``bisect_chains``); holds
      the deflation chain kernel to the plain chain run on the card, bit
      for bit, on real merge lanes (glued Wilkinson and uniform, W = 64 x
-     K = 2048 and W = 1 x K = 16384, r = 3; r = K = 512) and the edge
-     cases, in float64 and float32, and times one dependent step of its
-     chain on one warp (the chain probe);
+     K = 2048 and W = 1 x K = 16384, r = 3; r = K = 512; the r = K =
+     2048 and 4096 levels of a glued n = 4096 lazy solve, on the split
+     route) and the edge cases, in float64 and float32, prints its
+     routes, launch shapes, registers and spills, and times one dependent
+     step of its chain on one warp (the chain probe);
   3. drives the main path -- ``eigvalsh_tridiagonal`` at n = 16384
      (uniform) and ``eigvalsh_tridiagonal_batch`` at B = 64, n = 4096 for
      every family -- with the kernels' launch counts zeroed just before and
@@ -1106,10 +1108,12 @@ def main() -> int:
     # K = 16384 level of an n = 16000 solve (W = 1, r = 3), glued
     # Wilkinson and uniform; R = I on 8 lanes of the glued K = 512 level
     # (r = K = 512, the rows of the lazy and full baselines); and the edge
-    # cases of tests/test_torch_deflate_chain.py.  Timed beside the plain
-    # chain and the parallel head the kernel replaced on the card
-    # (merge._deflate_head: a candidate chain, a post-check, two host
-    # syncs); one run each of those.
+    # cases of tests/test_torch_deflate_chain.py; and the r = K = 2048
+    # (W = 2) and r = K = 4096 (W = 1) levels of the glued n = 4096 lazy
+    # solve (R as the solve gives it), which take the split route.  Timed
+    # beside the plain chain and the parallel head the kernel replaced on
+    # the card (merge._deflate_head: a candidate chain, a post-check, two
+    # host syncs); one run each of those.
     def chain_inputs(fn):
         got = {}
         real = mrg._deflate_level
@@ -1159,6 +1163,11 @@ def main() -> int:
                 d1, e1, return_boundary=True, dtype=dtype))
             cases.append((f"{fam} W=1 r=3 K=16384", lv[16384]))
         cases.append(r_is_k)
+        Dg, Eg = batches["glued_wilkinson"]
+        lz = chain_inputs(lambda: eigvalsh_tridiagonal(
+            Dg[0], Eg[0], method="lazy", dtype=dtype))
+        cases += [(f"glued_wilkinson lazy W={lz[K][0].shape[0]} r=K={K}",
+                   lz[K]) for K in (2048, 4096)]
         for name, d, z, small, tol in edge_lanes:
             t = lambda a: torch.tensor(  # noqa: E731
                 np.asarray([a], dtype=float), dtype=dtype, device=dev)
@@ -1186,7 +1195,8 @@ def main() -> int:
                 _, h_ms = _cuda_once(torch, lambda: mrg._deflate_head(
                     *args, budget=mrg.DEFAULT_DEFLATE_BUDGET))
                 head = f" parallel head (replaced) {h_ms:.3f} ms"
-            print(f"[2 kernel] deflate_chain {tag} {label}: bitwise {same} "
+            print(f"[2 kernel] deflate_chain {tag} {label} (route "
+                  f"{dck.launch_shape(W, r, K, dtype).route}): bitwise {same} "
                   f"(max_abs_err {err:.3e}); kernel {k_ms:.3f} ms plain "
                   f"chain {p_ms:.3f} ms{head}; rotations of the longest "
                   f"lane {int(rot.max())}, of all {int(rot.sum())}; "
@@ -1200,7 +1210,7 @@ def main() -> int:
                     ms=k_ms, plain_ms=p_ms, head_ms=h_ms, max_abs_err=err,
                     steps=int(steps.max()), rotations=int(rot.max()),
                     nbytes=W * K * (4 * 8 + 2) + 2 * W * r * K * 8 + 8 * W,
-                    args=args)
+                    shape=dck.launch_shape(W, r, K, dtype), args=args)
 
     # The chain's latency floor: one warp runs the kernel's window step
     # back to back on the first 32 poles of a glued lane, in registers;
@@ -1217,6 +1227,23 @@ def main() -> int:
         rec.pop("args")
         rec["chain_bound_ms"] = rec["steps"] * step_ns / 1e6
         rec["bytes_bound_ms"] = rec["nbytes"] / PEAK_BYTES * 1e3
+        rec["bound"] = (max(rec["chain_bound_ms"], rec["bytes_bound_ms"]),
+                        "operations" if rec["chain_bound_ms"]
+                        >= rec["bytes_bound_ms"] else "bytes")
+    dc_log = (_build.build_dir() / "deflate_chain.log").read_text()
+    dc_regs = {fn: v for fn, v in _ptxas(dc_log).items()
+               if "deflate_chain_kernel" in fn or "apply_rotations" in fn}
+    print("[2 design] deflate_chain: route by r (fused below "
+          f"dck.SPLIT_MIN_R = {dck.SPLIT_MIN_R} rows, split from it; "
+          f"APPLY_TARGET {dck.APPLY_TARGET} threads, COPY_BLOCKS "
+          f"{dck.COPY_BLOCKS}); " + "; ".join(
+              f"{k}: {v['shape'].route} chain blocks "
+              f"{v['shape'].chain_blocks} + copy blocks "
+              f"{v['shape'].copy_blocks} x {v['shape'].threads}, apply "
+              f"grid {v['shape'].apply_grid} x {v['shape'].apply_threads}"
+              for k, v in chain_cases.items()) + "; registers, spill "
+          "stores, spill loads: " + "; ".join(
+              f"{fn} {v}" for fn, v in dc_regs.items()))
     print(f"[2 chain] deflate_chain: one window step on one warp, operands "
           f"in registers: {step_ns:.1f} ns and {step_cycles:.1f} SM cycles "
           f"({int(c_fires)} of {reps} steps rotated); chain bound = "
@@ -1251,6 +1278,7 @@ def main() -> int:
     try:
         for k in kernels + sturm_kernels:
             k.launches = 0
+        deflate_chain_cuda.apply_launches = 0
         lam16 = eigvalsh_tridiagonal(d16, e16).cpu().numpy()
         per_solve = [k.launches for k in kernels]
         check_later("u16", "uniform n=16384", d16, e16, lam16)
@@ -1262,6 +1290,7 @@ def main() -> int:
                 check_later((fam, b), f"{fam} B=64 n=4096", D[b], E[b],
                             lam[b])
         launches = [k.launches for k in kernels]
+        apply_main = deflate_chain_cuda.apply_launches
         per_batch = [(a - b) / len(batches)
                      for a, b in zip(launches, per_solve)]
         print(f"[3 main] launches (secular_roots, fused_update, "
@@ -1386,6 +1415,7 @@ def main() -> int:
         names = [k.__name__ for k in every]
         for k in every:
             k.launches = 0
+        deflate_chain_cuda.apply_launches = 0
         cmp = {}
 
         def drive(label, key, fn, reps=1):
@@ -1473,6 +1503,7 @@ def main() -> int:
                                  lambda: eigvalsh_tridiagonal(
                                      d16, e16, method="sterf"))
         phase7 = dict(zip(names, (k.launches for k in every)))
+        apply_phase7 = deflate_chain_cuda.apply_launches
         ql_d = torch.tensor(Du[0], device=dev)[None]
         ql_e = torch.tensor(Eu[0], device=dev)[None]
         (ql_lam, ql_steps), ql_ms = _cuda_once(
@@ -1883,10 +1914,10 @@ def main() -> int:
         "sterf_n16384_ms": big["sterf"]["ms"] if n_ql == 16384 else None})
     dc = chain_cases["glued_wilkinson W=64 r=3 K=2048"]
     du = chain_cases["uniform W=1 r=3 K=16384"]
-    for rec in (dc, du):
-        rec["bound"] = (max(rec["chain_bound_ms"], rec["bytes_bound_ms"]),
-                        "operations" if rec["chain_bound_ms"]
-                        >= rec["bytes_bound_ms"] else "bytes")
+    dk = {K: chain_cases[label] for K, label in (
+        (512, "glued_wilkinson W=8 r=K=512"),
+        (2048, "glued_wilkinson lazy W=2 r=K=2048"),
+        (4096, "glued_wilkinson lazy W=1 r=K=4096"))}
     out.append({
         "name": "deflate_chain", "route": "cuda",
         "source": "src/repro_torch/csrc/deflate_chain.cu",
@@ -1905,7 +1936,23 @@ def main() -> int:
         "u16_shape": "W=1 r=3 K=16384 uniform f64", "u16_ms": du["ms"],
         "u16_plain_ms": du["plain_ms"], "u16_head_ms": du["head_ms"],
         "u16_bound_ms": du["bound"][0], "u16_steps": du["steps"],
-        "u16_max_abs_err": du["max_abs_err"]})
+        "u16_max_abs_err": du["max_abs_err"],
+        "redesigned": "split route for r >= SPLIT_MIN_R: the rotations "
+                      "decided on one warp a lane, applied to R's rows "
+                      "across the card",
+        "split_min_r": dck.SPLIT_MIN_R,
+        "apply_launches": int(apply_phase7),
+        "apply_launches_main": int(apply_main),
+        "r_is_k": {str(K): dict(
+            shape=shape, route=dk[K]["shape"].route,
+            **{k: dk[K][k] for k in (
+                "ms", "plain_ms", "head_ms", "steps", "rotations",
+                "chain_bound_ms", "bytes_bound_ms", "max_abs_err")},
+            bound_ms=dk[K]["bound"][0])
+            for K, shape in (
+                (512, "W=8 r=K=512 glued_wilkinson f64 (R = I)"),
+                (2048, "W=2 r=K=2048 glued lazy n=4096 f64"),
+                (4096, "W=1 r=K=4096 glued lazy n=4096 f64"))}})
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,7 @@
 the kernel table in PERF.md and at the levels of the solves they serve.
 
     python3 scripts/time_merge_kernels.py [--kernels merge|two_pass|postpass|
-                                                     sturm]
+                                                     sturm|chain]
                                           [--src DIR] [--label NAME]
                                           [--sweep-clusters] [--sweep]
 
@@ -108,6 +108,32 @@ time); None where the toolkit has no cuobjdump.
   * the chain probe (one shift's chain on one thread, n = 16384): the
     latency bound of a trip, beside which each trip and tree launch is
     printed as a ratio (scaled to its n).
+
+``--kernels chain``: the deflation chain (``csrc/deflate_chain.cu``) on
+real merge lanes, each level's chain inputs recorded by a spy on
+``merge._deflate_level`` during a card solve:
+
+  * the kernel table's r = 3 shapes, as chip_smoke.py makes them: the
+    K = 2048 level of a glued-Wilkinson B = 32 x 4000 batch (W = 64,
+    ``return_boundary=True``) and the K = 16384 level of a uniform
+    n = 16000 solve (W = 1);
+  * the r = K levels of the glued-Wilkinson n = 4096 lazy solve (the
+    first problem of ``time_solves.py``'s batch, R as the solve gives
+    it): K = 512 (W = 8), 2048 (W = 2) and 4096 (W = 1);
+
+each with the route the version takes, one call's median time and the
+median of a burst of 20 (as ``postpass``), the dependent steps of the
+longest lane, the chain bound (those steps times the chain probe's
+window step, timed in this call), the bytes bound (d, z, the masks and
+all of R read once and written once over 3.35 TB/s) and the bound of R's
+touched entries alone (the rotated columns read and written once); and,
+for a version with the split route, each kernel's device time in one
+traced call (torch.profiler).
+``--sweep`` (a version with the split route) also times both routes at
+r = 1 ... 128 rows of random R on each of those lanes' (d, z) and the
+split route at every segment count 1 ... 64 at r = K and r = 128,
+checking that every forced shape gives the default launch's bits: the
+measurement behind ``SPLIT_MIN_R`` and ``APPLY_TARGET``.
 
 The row update's origin and tau come from the version's own root solve
 and its weights from its own zhat kernel.  Its bound is the larger of its
@@ -270,7 +296,7 @@ def _sm_clock_hz(dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[1])
     ap.add_argument("--kernels", choices=("merge", "two_pass", "postpass",
-                                          "sturm"), default="merge")
+                                          "sturm", "chain"), default="merge")
     ap.add_argument("--src", default=os.path.join(HERE, "..", "src"))
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--sweep-clusters", action="store_true")
@@ -289,6 +315,8 @@ def main() -> int:
         return _time_postpass(args.label, dev, smi)
     if args.kernels == "sturm":
         return _time_sturm(args.label, dev, smi, args.sweep)
+    if args.kernels == "chain":
+        return _time_chain(args.label, dev, smi, args.sweep)
     return _time_merge(args, dev, smi)
 
 
@@ -664,6 +692,133 @@ def _time_sturm(label, dev, smi, sweep=False):
                  picked=m == depth, node_chains=B * k * (2 ** m - 1),
                  chain_ratio=ms / (chain_ms * n / 16384),
                  ms_per_halving=ms / m)
+    return 0
+
+
+def _chain_levels(fn):
+    """{K: (d, z, R, small, tol)} of every level fn() sends through
+    ``merge._deflate_level``."""
+    from repro_torch.core import merge as mrg
+    got = {}
+    real = mrg._deflate_level
+
+    def spy(d, z, R, small, tol, *, budget):
+        got[d.shape[1]] = (d, z, R, small, tol)
+        return real(d, z, R, small, tol, budget=budget)
+    mrg._deflate_level = spy
+    try:
+        fn()
+    finally:
+        mrg._deflate_level = real
+    return got
+
+
+def _device_ms_by_kernel(fn):
+    """{kernel name: device ms} of one traced call of fn() (torch.profiler;
+    {} where the tracer records no device time)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key[:60]: ev.self_device_time_total / 1e3
+            for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0}
+
+
+def _time_chain(label, dev, smi, sweep=False):
+    import torch
+    sys.path.append(os.path.join(HERE, ".."))
+    from chip_smoke import _window_steps
+    from repro_torch.core import (eigvalsh_tridiagonal,
+                                  eigvalsh_tridiagonal_batch,
+                                  eigvalsh_tridiagonal_br, make_family,
+                                  make_family_batch)
+    from repro_torch.kernels import deflate_chain as dck
+    split = hasattr(dck, "launch_shape")
+
+    def emit(**rec):
+        print(json.dumps(dict(label=label, card=smi, **rec)), flush=True)
+
+    D, E = make_family_batch("glued_wilkinson", 4000, 32, seed0=400)
+    glued = _chain_levels(lambda: eigvalsh_tridiagonal_batch(
+        D, E, return_boundary=True))[2048]
+    d1, e1 = make_family("uniform", 16000, seed=16)
+    uniform = _chain_levels(lambda: eigvalsh_tridiagonal_br(
+        d1, e1, return_boundary=True))[16384]
+    Dg, Eg = make_family_batch("glued_wilkinson", 4096, 64, seed0=100)
+    lazy = _chain_levels(lambda: eigvalsh_tridiagonal(Dg[0], Eg[0],
+                                                      method="lazy"))
+    cases = [("glued W=64 r=3 K=2048", glued),
+             ("uniform W=1 r=3 K=16384", uniform)] + [
+        (f"glued lazy W={lazy[K][0].shape[0]} r=K={K}", lazy[K])
+        for K in (512, 2048, 4096)]
+
+    d_, z_, _, s_, t_ = glued
+    reps = 65536
+    probe = lambda: dck.chain_probe_cuda(  # noqa: E731
+        d_[0], z_[0], s_[0], float(t_[0]), reps)
+    step_ms = median_ms(probe) / reps
+    emit(kernel="chain_probe", shape="glued W=64 K=2048 lane 0, f64",
+         ns_per_step=step_ms * 1e6)
+
+    for name, args in cases:
+        W, r, K = args[2].shape
+        run = lambda: dck.deflate_chain_cuda(*args)  # noqa: E731
+        out = run()
+        small = args[3].cpu().numpy()
+        defl = out[3].cpu().numpy()
+        steps = int(_window_steps(small, defl).max())
+        touched = int(((out[2] != args[2]).any(dim=1)).sum(dim=1).max())
+        item = args[0].element_size()
+        nbytes = W * K * (4 * item + 2) + 2 * W * r * K * item + item * W
+        rec = dict(kernel="deflate_chain", shape=f"{name} f64",
+                   ms=median_ms(run), ms_in_burst_of_20=burst_ms(run),
+                   steps=steps,
+                   rotations=int((defl & ~small).sum(axis=1).max()),
+                   chain_bound_ms=steps * step_ms,
+                   bytes_bound_ms=nbytes / PEAK_BYTES * 1e3,
+                   touched_bound_ms=2 * W * r * touched * item
+                   / PEAK_BYTES * 1e3)
+        if split:
+            rec["shape_picked"] = dck.launch_shape(W, r, K,
+                                                   args[0].dtype)._asdict()
+            rec["device_ms_by_kernel"] = _device_ms_by_kernel(run)
+        emit(**rec)
+    if not (sweep and split):
+        return 0
+
+    # The route crossover and the segment count, on each case's (d, z).
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for name, (d, z, R0, small, tol) in cases:
+        W, K = d.shape
+        rows = [1, 2, 3, 4, 5, 8, 16, 32, 64, 128]
+        if R0.shape[1] == K:
+            rows.append(K)
+        for r in rows:
+            R = (R0 if r == K else torch.randn(
+                (W, r, K), dtype=d.dtype, device=dev, generator=gen))
+            args = (d, z, R, small, tol)
+            want = dck.deflate_chain_cuda(*args)
+            ms = {}
+            shapes = {route: dck._shape(W, r, K, d.dtype, route)
+                      for route in ("fused", "split")}
+            if r in (128, K):
+                for S in (1, 2, 4, 8, 16, 32, 64):
+                    shapes[f"split S={S}"] = dck._shape(
+                        W, r, K, d.dtype, "split", segments=S)
+            for key, shape in shapes.items():
+                got = dck._launch(*args, shape)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f"{name} r={r} {key}: other bits")
+                ms[key] = median_ms(lambda: dck._launch(*args, shape))
+            emit(kernel="deflate_chain", sweep=name, r=r,
+                 picked=dck.launch_shape(W, r, K, d.dtype).route,
+                 segments_picked=shapes["split"].apply_grid[2], ms=ms)
     return 0
 
 

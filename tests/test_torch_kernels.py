@@ -803,42 +803,99 @@ def test_cpu_tensors_take_the_plain_chain():
         deflate_chain_cuda(*lv)
 
 
+def _card_chain_levels(family, n, dtype, device):
+    """{K: (d, z, small, tol)} of every level of the port's card solve of
+    ``family`` at n (seed 0)."""
+    got = {}
+    real = tmerge._deflate_level
+
+    def spy(d, z, R, small, tol, *, budget):
+        got[d.shape[1]] = (d, z, small, tol)
+        return real(d, z, R, small, tol, budget=budget)
+
+    d, e = make_family(family, n, seed=0)
+    tmerge._deflate_level = spy
+    try:
+        eigvalsh_tridiagonal(d, e, dtype=dtype, device=device)
+    finally:
+        tmerge._deflate_level = real
+    return got
+
+
+CHAIN_ROWS = (1, 3, 4, 5, 32, 33, 64, None)       # None: r = K
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_deflate_chain_matches_plain_chain_on_card(cuda_device, dtype):
     """The kernel against the plain chain run on the card (torch.hypot is
-    CUDA's hypot there), bit for bit on d, z, R and the mask: every level
-    of a glued-Wilkinson and a uniform n = 1024 solve, the top glued level
-    with R = I (r = K = 1024, the lazy and full baselines' rows), and the
-    edge cases."""
+    CUDA's hypot there), bit for bit on d, z, R and the mask, on both
+    routes (the fused chain and the split one: list, then rows): every
+    level of a glued-Wilkinson and a uniform n = 1024 solve, the top
+    glued level with R = I (r = K = 1024, the lazy and full baselines'
+    rows), the edge cases, and the K = 512, 2048 and 4096 levels of a
+    glued n = 4096 card solve with random R of r = 1, 3, 4, 5, 32, 33, 64
+    and K rows.  A check that passed a zeroed R, or an R with a rotated
+    column swapped with its neighbour, would pass anything: both must
+    fail."""
     glued = _chain_levels("glued_wilkinson", 1024, dtype)
     cases = glued + _chain_levels("uniform", 1024, dtype) + _chain_edges(
         dtype)
     d, z, _, small, tol = glued[-1]
     cases.append((d, z, torch.eye(d.shape[1], dtype=dtype)[None], small, tol))
+    cases = [[t.to(cuda_device) for t in case] for case in cases]
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    big = _card_chain_levels("glued_wilkinson", 4096, dtype, cuda_device)
+    for K in (512, 2048, 4096):
+        d, z, small, tol = big[K]
+        for r in CHAIN_ROWS:
+            R = torch.randn((d.shape[0], r or K, K), dtype=dtype,
+                            device=cuda_device, generator=gen)
+            cases.append([d, z, R, small, tol])
     rotations = 0
-    for case in cases:
-        on = [t.to(cuda_device) for t in case]
-        before = deflate_chain_cuda.launches
-        got = deflate_chain_cuda(*on)
-        assert deflate_chain_cuda.launches == before + 1
+    for on in cases:
+        W, r, K = on[2].shape
         want = tmerge._close_pole_scan(*on)
-        for name, a, b in zip("d z R deflated".split(), got, want):
-            assert _same_bits(a, b), (name, tuple(on[0].shape),
-                                      tuple(on[2].shape))
+        for route in ("fused", "split"):
+            before = deflate_chain_cuda.launches
+            got = dck._launch(*on, dck._shape(W, r, K, dtype, route))
+            assert deflate_chain_cuda.launches == before + 1
+            for name, a, b in zip("d z R deflated".split(), got, want):
+                assert _same_bits(a, b), (route, name, (W, r, K))
         rotations += int((got[3] & ~on[3]).sum())
+        if r == K == 4096:
+            fired = torch.nonzero(got[3][0] & ~on[3][0])[:, 0]
+            assert fired.numel() > 0
+            p, f = int(fired[0]), int(fired[0]) + 1
+            swapped = got[2].clone()
+            swapped[..., [p, f]] = got[2][..., [f, p]]
+            assert not _same_bits(swapped, want[2])
+            assert not _same_bits(torch.zeros_like(got[2]), want[2])
     assert rotations > 50
+    # The wrapper's own route: the split one from SPLIT_MIN_R rows.
+    before = deflate_chain_cuda.apply_launches
+    deflate_chain_cuda(*cases[-1])
+    deflate_chain_cuda(*cases[-8])
+    assert deflate_chain_cuda.apply_launches == before + 1
 
 
 @pytest.mark.gpu
-def test_deflate_chain_batched_equals_one_lane_bitwise(cuda_device):
+@pytest.mark.parametrize("route", ["fused", "split"])
+def test_deflate_chain_batched_equals_one_lane_bitwise(cuda_device, route):
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
     for lv in _chain_levels("glued_wilkinson", 1024):
-        on = [t.to(cuda_device) for t in lv]
-        full = deflate_chain_cuda(*on)
-        for w in range(on[0].shape[0]):
-            one = deflate_chain_cuda(*(t[w:w + 1] for t in on))
-            for a, b in zip(one, full):
-                assert _same_bits(a[0], b[w])
+        d, z, _, small, tol = (t.to(cuda_device) for t in lv)
+        W, K = d.shape
+        for r in (3, 33):
+            R = torch.randn((W, r, K), dtype=d.dtype, device=cuda_device,
+                            generator=gen)
+            on = (d, z, R, small, tol)
+            full = dck._launch(*on, dck._shape(W, r, K, d.dtype, route))
+            for w in range(W):
+                one = dck._launch(*(t[w:w + 1] for t in on),
+                                  dck._shape(1, r, K, d.dtype, route))
+                for a, b in zip(one, full):
+                    assert _same_bits(a[0], b[w])
 
 
 @pytest.mark.gpu
