@@ -88,7 +88,23 @@ per source, in parallel), then:
      bisect, certify and mixed solves (CUDA events, median of 5 after a
      warm-up), then traces one run of the two main-path solves, the glued
      n = 4096 solve, the n = 16384 range solve and the two mixed solves
-     with torch.profiler to split device time by kernel.
+     with torch.profiler to split device time by kernel;
+  8. drives the eigensolver service (``repro_torch.serve``) on the card:
+     prewarms the buckets through ``EigensolverClient(prewarm=...)``,
+     sends sixteen threads' mixed traffic (n = 4096 singles, uniform and
+     glued Wilkinson; B = 8 batches of n in 3000-4096 with boundary rows;
+     n = 16384 singles; n = 16384 range windows, k = 64; B = 4 x 4096
+     edges probes, k = 8; certified n = 4096 singles) with the kernels'
+     launch counts zeroed just before and read just after, holds every
+     served result to the sync API on the card bit for bit (diagnostics
+     too, none on the CPU), checks 0 errors, fallbacks and retries, a
+     coalesce factor above 1 and no plan-cache miss after the prewarm;
+     runs two chaos cases (a transient ``serve.launch`` error, retried
+     once; a ``plan.output``-poisoned member, escalated as its sync solve
+     is); and times 64 x 4096 problems served as 64 concurrent requests,
+     as one batch call and as a loop of 64 sync calls, with each flush's
+     wall time, host time in the launch and in the leaf's
+     ``torch.linalg.eigh``, and stream span (CUDA events).
 
 Every check raises on failure.  The last lines are a JSON record of the
 kernels, the card's name and power limit, and the result line
@@ -112,6 +128,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -409,6 +426,342 @@ def _instr_bounds_ms(counts, items, sm_hz, sms):
                  for c, lanes in zip(counts, (64, 128)))
 
 
+
+def _phase8(torch, np, smi):
+    """Phase 8: the eigensolver service on the card (see the module
+    docstring).  Raises on any failed check; returns the phase's launch
+    counts by kernel name."""
+    from repro_torch.core import (SolveRequest, eigvalsh_tridiagonal,
+                                  eigvalsh_tridiagonal_batch,
+                                  execute_request, make_family,
+                                  plan_cache_stats)
+    from repro_torch.core import br_dc
+    from repro_torch.kernels.deflate_chain import deflate_chain_cuda
+    from repro_torch.kernels.fused_update import secular_postpass_cuda
+    from repro_torch.kernels.resident_merge import resident_merge_cuda
+    from repro_torch.kernels.secular_roots import secular_solve_cuda
+    from repro_torch.kernels.sturm_count import (sturm_bisect_tree_cuda,
+                                                 sturm_count_cuda,
+                                                 sturm_count_newton_cuda)
+    from repro_torch.runtime import FaultSpec, configure_faults, reset_faults
+    from repro_torch.serve import EigensolverClient
+
+    t_phase = time.perf_counter()
+    engine_thread = "repro-torch-serve-engine"
+    # The leaf's host time: every torch.linalg.eigh call the engine
+    # thread makes, as (start, end) on the perf_counter clock.
+    leaf_spans = []
+    real_leaf = br_dc._leaf_eigh
+
+    def timed_leaf(*args):
+        t0 = time.perf_counter()
+        out = real_leaf(*args)
+        if threading.current_thread().name == engine_thread:
+            leaf_spans.append((t0, time.perf_counter()))
+        return out
+
+    br_dc._leaf_eigh = timed_leaf
+
+    rng = np.random.default_rng(2020)
+    n4, n16 = 4096, 16384
+
+    def fam(i):
+        return ("uniform", "glued_wilkinson")[i % 2]
+
+    singles = [make_family(fam(i), n4, seed=800 + i) for i in range(64)]
+    batches = []
+    for i in range(8):
+        n = int(rng.integers(3000, n4 + 1))
+        D, E = zip(*(make_family(fam(i + j), n, seed=900 + 8 * i + j)
+                     for j in range(8)))
+        batches.append((np.stack(D), np.stack(E)))
+    bigs = [make_family(("uniform", "normal")[i % 2], n16, seed=1000 + i)
+            for i in range(4)]
+    windows = [(bigs[i // 2], 0 if i % 2 == 0 else n16 - 64)
+               for i in range(8)]
+    probes = []
+    for i in range(16):
+        D, E = zip(*(make_family(fam(i + j), n4, seed=1100 + 4 * i + j)
+                     for j in range(4)))
+        probes.append((np.stack(D), np.stack(E)))
+    certs = [make_family(fam(i), n4, seed=1200 + i) for i in range(16)]
+
+    reqs = ([("single", SolveRequest(d=d, e=e)) for d, e in singles]
+            + [("batch", SolveRequest(d=D, e=E, kind="batch",
+                                      return_boundary=True))
+               for D, E in batches]
+            + [("big", SolveRequest(d=d, e=e)) for d, e in bigs]
+            + [("range", SolveRequest(d=d, e=e, kind="range", il=il,
+                                      iu=il + 63))
+               for (d, e), il in windows]
+            + [("edges", SolveRequest(d=D, e=E, kind="edges",
+                                      knobs={"k": 8}))
+               for D, E in probes]
+            + [("certify", SolveRequest(d=d, e=e, certify=True))
+               for d, e in certs])
+
+    def send(client, req):
+        """Each kind through the client's own front door."""
+        kind, r = req
+        if kind in ("single", "big"):
+            return client.solve_async(r.d, r.e)
+        if kind == "batch":
+            return client.solve_batch_async(r.d, r.e, return_boundary=True)
+        if kind == "range":
+            return client.solve_range_async(r.d, r.e, il=r.il, iu=r.iu)
+        if kind == "certify":
+            return client.solve_async(r.d, r.e, certify=True)
+        return client.submit(r)
+
+    def burst(client, items, threads=16):
+        """Submit ``items`` from ``threads`` threads; returns the futures
+        in item order."""
+        futs = [None] * len(items)
+
+        def worker(k):
+            for i in range(k, len(items), threads):
+                futs[i] = send(client, items[i])
+
+        ts = [threading.Thread(target=worker, args=(k,))
+              for k in range(threads)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        return futs
+
+    pow2 = (1, 2, 4, 8, 16, 32, 64)
+    spec = ([{"kind": "solve", "n": n4, "batch": b} for b in pow2]
+            + [{"kind": "solve", "n": n4, "batch": b,
+                "return_boundary": True} for b in pow2[3:]]
+            + [{"kind": "full", "n": n16, "batch": b} for b in pow2[:3]]
+            + [{"kind": "range", "n": n16, "k": 64, "batch": b}
+               for b in pow2[:4]]
+            + [{"kind": "edges", "n": n4, "k": 8, "batch": b}
+               for b in (4, 8, 16, 32)])
+    kernels = {"resident_merge": resident_merge_cuda,
+               "secular_roots": secular_solve_cuda,
+               "fused_update": secular_postpass_cuda,
+               "deflate_chain": deflate_chain_cuda,
+               "sturm_count": sturm_count_cuda,
+               "sturm_count_newton": sturm_count_newton_cuda,
+               "sturm_bisect_tree": sturm_bisect_tree_cuda}
+    try:
+        t0 = time.perf_counter()
+        client = EigensolverClient(max_batch=64, max_wait_us=5000,
+                                   prewarm=spec)
+        prewarm_s = time.perf_counter() - t0
+        try:
+            before = plan_cache_stats()
+            torch.cuda.synchronize()
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            futs = burst(client, reqs)
+            got = [f.result(timeout=600) for f in futs]
+            traffic_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = {name: k.launches for name, k in kernels.items()}
+            after = plan_cache_stats()
+            snap = client.metrics()["buckets"]
+            flushes = list(client.engine.flush_log)
+        finally:
+            client.close()
+        print(f"[8 serve] prewarm of {len(spec)} plans (kernels built "
+              f"first) {prewarm_s:.2f} s; traffic of {len(reqs)} requests "
+              f"from 16 threads {traffic_s:.3f} s wall ({smi})")
+        print(f"[8 serve] launches in the served traffic: {launches}")
+        for name in ("resident_merge", "secular_roots", "fused_update",
+                     "deflate_chain", "sturm_count"):
+            if launches[name] == 0:
+                raise AssertionError(f"serve: {name} never launched")
+        for key in ("misses", "range_misses", "executor_traces",
+                    "range_executor_traces"):
+            if after[key] != before[key]:
+                raise AssertionError(f"serve: the traffic added plan-cache "
+                                     f"{key}: {before[key]} -> "
+                                     f"{after[key]}")
+        for label, b in sorted(snap.items()):
+            print(f"[8 serve] bucket {label}: requests {b['requests']}, "
+                  f"flushes {b['flushes']}, coalesce factor "
+                  f"{b['coalesce_factor']:.2f}, errors {b['errors']}, "
+                  f"fallbacks {b['fallbacks']}, retries {b['retries']}, "
+                  f"latency p50 {b['latency_p50_ms']:.1f} ms, p99 "
+                  f"{b['latency_p99_ms']:.1f} ms, flush p50 "
+                  f"{b['flush_p50_ms']:.1f} ms")
+        bad = {k: sum(b[k] for b in snap.values())
+               for k in ("errors", "fallbacks", "retries")}
+        if any(bad.values()):
+            raise AssertionError(f"serve: clean traffic had {bad}")
+        if not snap["solve/N4096/float64"]["coalesce_factor"] > 1.0:
+            raise AssertionError("serve: solve/N4096/float64 never "
+                                 "coalesced")
+
+        # served == sync, bit for bit, on the card
+        t0 = time.perf_counter()
+        refs = [execute_request(r) for _, r in reqs]
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        for (kind, _), g, r in zip(reqs, got, refs):
+            for name in ("eigenvalues", "blo", "bhi"):
+                a, b = getattr(g, name), getattr(r, name)
+                if a is None and b is None:
+                    continue
+                if a is None or b is None or not a.is_cuda:
+                    raise AssertionError(f"serve {kind}: {name} is "
+                                         f"{a if a is None else a.device}")
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    diff = float((a.double() - b.double()).abs().max())
+                    raise AssertionError(f"serve {kind}: {name} differs "
+                                         f"from the sync API by {diff:.3e}")
+            if g.diagnostics != r.diagnostics:
+                raise AssertionError(f"serve {kind}: diagnostics "
+                                     f"{g.diagnostics} != {r.diagnostics}")
+        print(f"[8 serve] every served result == the sync API on the card, "
+              f"bit for bit with equal diagnostics ({len(reqs)} requests; "
+              f"the sync loop took {sync_s:.3f} s); none on the CPU")
+
+        # chaos on the card
+        probs = [SolveRequest(d=d, e=e) for d, e in singles[:8]]
+        configure_faults([FaultSpec(site="serve.launch", kind="error",
+                                    times=(0,), error="transient")])
+        with EigensolverClient(max_batch=64, max_wait_us=50_000,
+                               retries=1, retry_backoff_s=0.01) as c:
+            res = [f.result(timeout=600)
+                   for f in [c.solve_async(r.d, r.e) for r in probs]]
+            b = c.metrics()["buckets"]["solve/N4096/float64"]
+        reset_faults()
+        if not (b["retries"] == 1 and b["fallbacks"] == 0
+                and b["errors"] == 0):
+            raise AssertionError(f"serve chaos (transient launch): {b}")
+        for g, r in zip(res, refs[:8]):
+            if not torch.equal(g.eigenvalues, r.eigenvalues):
+                raise AssertionError("serve chaos (transient launch): "
+                                     "a result changed")
+        print(f"[8 chaos] transient serve.launch error: retried once "
+              f"(retries {b['retries']}, fallbacks {b['fallbacks']}, errors "
+              f"{b['errors']}), {len(res)} results bit for bit")
+        configure_faults([FaultSpec(site="plan.output", kind="nan",
+                                    times=(0,), lane=1, width=1)])
+        with EigensolverClient(max_batch=64, max_wait_us=200_000) as c:
+            futs = [c.solve_async(r.d, r.e) for r in probs[:4]]
+            res = [f.result(timeout=600) for f in futs]
+            b = c.metrics()["buckets"]["solve/N4096/float64"]
+        poisoned = [i for i, g in enumerate(res)
+                    if g.diagnostics and g.diagnostics.get("escalations")]
+        if len(poisoned) != 1 or b["flushes"] != 1:
+            raise AssertionError(f"serve chaos (poisoned member): "
+                                 f"escalated {poisoned}, {b}")
+        i = poisoned[0]
+        configure_faults([FaultSpec(site="plan.output", kind="nan",
+                                    times=(0,), lane=0, width=1)])
+        want = execute_request(probs[i])
+        reset_faults()
+        if not (torch.equal(res[i].eigenvalues, want.eigenvalues)
+                and res[i].diagnostics == want.diagnostics):
+            raise AssertionError("serve chaos (poisoned member): the served "
+                                 "escalation differs from the sync one")
+        for j, (g, r) in enumerate(zip(res, refs[:4])):
+            if j != i and not torch.equal(g.eigenvalues, r.eigenvalues):
+                raise AssertionError("serve chaos (poisoned member): a "
+                                     "flushmate changed")
+        print(f"[8 chaos] plan.output-poisoned member {i} of a 4-request "
+              f"flush escalated as its sync solve does "
+              f"({res[i].diagnostics['escalations']}), its 3 flushmates "
+              f"bit for bit")
+
+        # times: 64 x 4096 problems three ways
+        D = np.stack([d for d, _ in singles])
+        E = np.stack([e for _, e in singles])
+        singles_req = [("single", SolveRequest(d=d, e=e)) for d, e in singles]
+        ways = {}
+        with EigensolverClient(max_batch=64, max_wait_us=5000) as c:
+            walls, spans, reps = [], [], []
+            for rep in range(4):
+                mark = len(c.engine.flush_log)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                futs = burst(c, singles_req)
+                t_sub = time.perf_counter()
+                for f in futs:
+                    f.result(timeout=600)
+                walls.append(time.perf_counter() - t0)
+                # A future resolves at demux; its flush is logged just
+                # after: wait for the burst's 64 problems.
+                while sum(f["problems"] for f in
+                          list(c.engine.flush_log)[mark:]) < 64:
+                    time.sleep(0.001)
+                log = list(c.engine.flush_log)[mark:]
+                spans.append(sum(f["device_ms"] for f in log))
+                reps.append((walls[-1], t_sub - t0,
+                             min(f["launch_t"][0] for f in log) - t0,
+                             [f["problems"] for f in log]))
+            served_log = log
+        for rep, (wall, sub, first, sizes) in enumerate(reps):
+            print(f"[8 time] served burst {rep}{' (warm-up)' if not rep else ''}"
+                  f": wall {wall * 1e3:.1f} ms; the 16 threads had "
+                  f"submitted all 64 at {sub * 1e3:.1f} ms; first launch "
+                  f"at {first * 1e3:.1f} ms; flushes of {sizes} problems")
+        ways["served, 64 concurrent requests"] = (walls[1:], spans[1:])
+        for label, fn in (
+                ("one eigvalsh_tridiagonal_batch call",
+                 lambda: eigvalsh_tridiagonal_batch(D, E)),
+                ("sync loop of 64 eigvalsh_tridiagonal calls",
+                 lambda: [eigvalsh_tridiagonal(d, e) for d, e in singles])):
+            walls, spans = [], []
+            fn()
+            for rep in range(3):
+                torch.cuda.synchronize()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                walls.append(time.perf_counter() - t0)
+                spans.append(start.elapsed_time(end))
+            ways[label] = (walls, spans)
+        for label, (walls, spans) in ways.items():
+            w = statistics.median(walls)
+            print(f"[8 time] 64 x n=4096 f64 (half uniform, half glued "
+                  f"Wilkinson), {label}: {64 / w:.1f} problems/s (wall "
+                  f"{w * 1e3:.1f} ms, median of {len(walls)}; stream span "
+                  f"{statistics.median(spans):.1f} ms by CUDA events; "
+                  f"{smi})")
+        for f in served_log:
+            a, b = f["launch_t"]
+            leaf = sum(min(t1, b) - max(t0, a) for t0, t1 in leaf_spans
+                       if t1 > a and t0 < b)
+            print(f"[8 flush] {f['bucket']}: {f['requests']} requests, "
+                  f"{f['problems']} problems; flush wall "
+                  f"{f['wall_s'] * 1e3:.1f} ms, host in the launch "
+                  f"{f['launch_s'] * 1e3:.1f} ms (of it in the leaf's "
+                  f"torch.linalg.eigh {leaf * 1e3:.1f} ms), demux "
+                  f"{f['demux_s'] * 1e3:.1f} ms, stream span "
+                  f"{f['device_ms']:.1f} ms ({smi})")
+        per = {}
+        for f in flushes:
+            a, b = f["launch_t"]
+            leaf = sum(min(t1, b) - max(t0, a) for t0, t1 in leaf_spans
+                       if t1 > a and t0 < b)
+            per.setdefault(f["bucket"], []).append(
+                (f["wall_s"] * 1e3, f["launch_s"] * 1e3, leaf * 1e3,
+                 f["demux_s"] * 1e3, f["device_ms"]))
+        for label, rows in sorted(per.items()):
+            med = [statistics.median(col) for col in zip(*rows)]
+            print(f"[8 flush] traffic bucket {label}: {len(rows)} flushes, "
+                  f"median flush wall {med[0]:.1f} ms, host in the launch "
+                  f"{med[1]:.1f} ms, in the leaf's eigh {med[2]:.1f} ms, "
+                  f"demux {med[3]:.1f} ms, stream span {med[4]:.1f} ms "
+                  f"({smi})")
+    finally:
+        reset_faults()
+        br_dc._leaf_eigh = real_leaf
+    print(f"[8 serve] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -463,9 +816,7 @@ def main() -> int:
 
     # ---- phase 1: device and build --------------------------------------
     t0 = time.perf_counter()
-    logs = _build.build_all(["secular_roots", "fused_update",
-                             "resident_merge", "sturm_count", "zhat",
-                             "boundary_update", "sterf", "deflate_chain"])
+    logs = _build.build_all(_build.SOURCES)
     build_s = time.perf_counter() - t0
     print(f"[1 device] {smi} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | kernels built in {build_s:.1f} s")
@@ -1717,6 +2068,9 @@ def main() -> int:
     _profile(torch, "lazy, n=16384", lambda: eigvalsh_tridiagonal(
         d16, e16, method="lazy"))
 
+    # ---- phase 8: the eigensolver service --------------------------------
+    serve_launches = _phase8(torch, np, smi)
+
     sources = {"secular_roots": ("src/repro_torch/csrc/secular_roots.cu",
                                  "src/repro/kernels/secular_roots.py:265"),
                "fused_update": ("src/repro_torch/csrc/fused_update.cu",
@@ -1953,6 +2307,8 @@ def main() -> int:
                 (512, "W=8 r=K=512 glued_wilkinson f64 (R = I)"),
                 (2048, "W=2 r=K=2048 glued lazy n=4096 f64"),
                 (4096, "W=1 r=K=4096 glued lazy n=4096 f64"))}})
+    for rec in out:   # phase 8's own counts, beside the main path's
+        rec["serve_launches"] = int(serve_launches.get(rec["name"], 0))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,14 +14,18 @@ PyTorch runs eagerly, so there is no compiled executable behind a plan:
 tree's identity -- the analogue of the JAX package's trace counter (a
 second same-bucket request builds nothing, and ``certify`` is not part of
 the tree's identity).  ``RANGE_EXECUTOR_TRACES`` counts range-plan builds
-the same way.  Sharding, the tuning cache and ``prewarm`` come in later
-slices.
+the same way.  :func:`prewarm` builds the plans (and, on the card, the
+kernels) of an expected workload before traffic arrives;
+:func:`tuning_stats` reports the tuning cache's reader
+(``repro_torch.core.tune``).  Sharding, ``plan.tune`` and the route-time
+consult of the tuning cache come in later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -32,6 +36,7 @@ from repro_torch.core import br_dc as _br
 from repro_torch.core import guard as _guard
 from repro_torch.core import merge as _merge
 from repro_torch.core import secular as _sec
+from repro_torch.core import tune as _tune
 from repro_torch.core.instrument import SolveCounter
 from repro_torch.core.tune import resolve_device  # noqa: F401 (re-export)
 from repro_torch.runtime import faults as _faults
@@ -571,7 +576,9 @@ def clear_plan_cache() -> None:
     measurement window starts at zero.  Also clears the robustness
     layer's process-wide state -- the fault schedule and its hit
     counters, the degradation gauge and counters -- so a chaos schedule
-    never leaks into the next solve."""
+    never leaks into the next solve -- and the tuning layer's route
+    counters and loaded-cache memo, so the next consult re-reads the file
+    (the file itself is untouched)."""
     with _PLAN_LOCK:
         _PLAN_CACHE.clear()
         _RANGE_CACHE.clear()
@@ -583,3 +590,112 @@ def clear_plan_cache() -> None:
     _faults.reset_faults()
     _guard.reset_robustness_counters()
     _br.SOLVE_COUNTER.clear_degradation()
+    _tune.reset_consult_stats()
+    _tune.reload_tuning_cache()
+
+
+def tuning_stats() -> dict:
+    """Tuning-cache observability (file, fingerprint, entry count, and
+    tuned/default route counters); see ``repro_torch.core.tune``."""
+    return _tune.tuning_stats()
+
+
+# Workload-spec kind aliases accepted by ``prewarm``; "solve" is the
+# stacked ("batch") form.  Each resolves through the routing rules its
+# real traffic uses ("full" carries the single-problem L == 0
+# boundary-rows rule), so the plan built is exactly the one the first
+# request needs.  "slq" routes like its requests, which raise
+# NotImplementedError until spectral/ is ported.
+_PREWARM_KIND_ALIASES = {"solve": "batch", "batch": "batch", "full": "full",
+                         "slq": "slq"}
+
+
+def _wait(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def prewarm(workload_spec) -> dict:
+    """Build the plans of an expected workload before traffic hits.
+
+    ``workload_spec`` is an iterable of dict entries::
+
+        {"kind": "solve", "n": 1024, "batch": 64, **make_plan knobs}
+        {"kind": "full",  "n": 16}                  # single-problem API
+        {"kind": "range", "n": 4096, "k": 32, "batch": 8, **knobs}
+        {"kind": "edges", "n": 16, "k": 1, "batch": 1}   # monitor probes
+
+    An entry may name its ``device`` (default: the card).  Each entry is
+    routed exactly like a real request of that kind (``route_request``),
+    its plan is built, and one throwaway full-bucket execute on trivial
+    problems runs and is waited for.  On the card every kernel source is
+    built first (``kernels._build.build_all``, one nvcc each, in
+    parallel).  Afterwards the first request of a prewarmed shape adds no
+    plan-cache miss and no executor build (``plan_cache_stats()``).
+    Boundary-row plans execute with the per-problem ``orig_n`` track
+    input, as the serving flush does.  The throwaway solves tick
+    SOLVE_COUNTER.  Returns ``{"plans": P, "seconds": s, "traces": t}``.
+    """
+    from repro_torch.core.request import SolveRequest, route_request
+    t0 = time.perf_counter()
+    t_start = EXECUTOR_TRACES.count + RANGE_EXECUTOR_TRACES.count
+    built = False
+    plans = 0
+    for spec in workload_spec:
+        spec = dict(spec)
+        kind = spec.pop("kind", "solve")
+        n = int(spec.pop("n"))
+        batch = int(spec.pop("batch", 1))
+        device = spec.pop("device", None)
+        if kind not in _PREWARM_KIND_ALIASES and kind not in ("range",
+                                                             "edges"):
+            raise ValueError(
+                f"unknown prewarm kind {kind!r}; use one of "
+                f"{tuple(_PREWARM_KIND_ALIASES) + ('range', 'edges')}")
+        dev = resolve_device(device)
+        if dev.type == "cuda" and not built:
+            from repro_torch.kernels import _build
+            _build.build_all(_build.SOURCES)
+            built = True
+        dtype = np.dtype(_dtype_name(spec.get("dtype") or torch.float64))
+        if kind in _PREWARM_KIND_ALIASES:
+            req_kind = _PREWARM_KIND_ALIASES[kind]
+            d = np.zeros((n,) if req_kind == "full" else (batch, n), dtype)
+            e = np.zeros(d.shape[:-1] + (max(n - 1, 0),), dtype)
+            routed = route_request(SolveRequest(
+                d=d, e=e, kind=req_kind,
+                return_boundary=bool(spec.pop("return_boundary", False)),
+                certify=bool(spec.pop("certify", False)),
+                knobs=spec, device=device))
+            if routed.route is not None:   # n == 1 short circuits: no plan
+                plan = plan_for_route(routed.route, batch)
+                d2 = np.zeros((batch, n), dtype)
+                e2 = np.zeros((batch, max(n - 1, 0)), dtype)
+                # Serve flushes pass per-problem orig_n (the tracked-row
+                # form when boundary rows are on); "full" mirrors the
+                # single-problem sync execution instead.
+                orig_n = (np.full((batch,), n, np.int64)
+                          if plan.key.return_boundary and req_kind != "full"
+                          else None)
+                plan.execute(d2, e2, orig_n=orig_n)
+        elif kind == "range":
+            k = int(spec.pop("k"))
+            plan = make_range_plan(n, k, batch, device=device, **spec)
+            plan.execute(np.zeros((batch, n), dtype),
+                         np.zeros((batch, max(n - 1, 0)), dtype), 0, k)
+        else:
+            # Spectral-monitor probes: routed like a real probe (rows
+            # duplicated, per-problem il), so the plan is the range plan
+            # at the duplicated-rows batch bucket.
+            k = int(spec.pop("k", 1))
+            routed = route_request(SolveRequest(
+                d=np.zeros((batch, n), dtype),
+                e=np.zeros((batch, max(n - 1, 0)), dtype), kind="edges",
+                knobs={"k": k, **spec}, device=device))
+            plan = range_plan_for_route(routed.route, routed.batch)
+            plan.execute(routed.d, routed.e, routed.il, routed.k)
+        _wait(dev)
+        plans += 1
+    return {"plans": plans, "seconds": time.perf_counter() - t0,
+            "traces": EXECUTOR_TRACES.count + RANGE_EXECUTOR_TRACES.count
+            - t_start}

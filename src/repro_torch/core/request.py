@@ -60,8 +60,8 @@ class SolveRequest:
     output -- escalates down the degradation ladder (mixed -> native
     D&C -> per-lane Sturm bisection); ``SolveResult.diagnostics`` records
     what happened.  Range and bisect solves are count-verified by
-    construction and certify for free.  ``deadline_ms`` is validated (the
-    serving layer that enforces it comes in a later slice).
+    construction and certify for free.  ``deadline_ms`` is validated here
+    and enforced by the serving engine (``repro_torch.serve``).
     """
     d: Any
     e: Any

@@ -1,8 +1,14 @@
-"""Backend-aware knob defaults for the port.
+"""Backend-aware knob defaults and the persistent tuning cache's reader
+for the port.
 
-Only the defaults table of ``repro.core.tune`` is ported so far; the
-on-device knob search and its persistent tuning cache come in a later
-slice, so every ``None`` knob resolves to this table.
+Ported from ``repro.core.tune``: the defaults table and the tuning
+cache's reader (:func:`cache_path`, :func:`fingerprint`,
+:func:`coord_key`, the loader, :func:`lookup`, :func:`serve_knobs`,
+:func:`tuning_stats`).  The serve scheduler consults :func:`serve_knobs`
+per route bucket.  Still to come (ROADMAP Queue 1 item 5): the writer
+(``tune_workload``, ``_save_entries``), ``plan.tune`` and the route-time
+consult of ``plan.resolve_solve_route`` / ``resolve_range_route``, so
+every ``None`` solver knob resolves to the defaults table here.
 
 The port routes by *device*, not by a process-wide backend: a CPU tensor
 runs the plain torch versions and a CUDA tensor runs the hand-written
@@ -12,12 +18,33 @@ and callers pick the row of the device their tensors live on.
 
 from __future__ import annotations
 
+import json
+import os
 import threading
+import warnings
 
 import torch
 
-_LOCK = threading.Lock()
+_LOCK = threading.RLock()
 _BACKEND: str | None = None
+
+TUNE_CACHE_VERSION = 1
+
+# Environment override for the cache directory (the JAX package's
+# variable: one directory holds both packages' files, which never share a
+# name); default under ~/.cache.
+TUNE_CACHE_ENV = "REPRO_TUNE_CACHE"
+_DEFAULT_CACHE_DIR = os.path.join("~", ".cache", "repro-tune")
+
+# Loaded-cache memo per device type: entries (possibly empty) and why a
+# file was rejected (None: accepted or absent).  The degradation warning
+# fires once per load.
+_CACHE: dict[str, dict] = {}
+_CACHE_ERROR: dict[str, str | None] = {}
+
+# Route-provenance counters (the route-time consult that ticks them comes
+# with the tuning writer, ROADMAP Queue 1 item 5).
+_CONSULTS = {"tuned_routes": 0, "default_routes": 0}
 
 # Largest merge size K the resident kernel (csrc/resident_merge.cu) takes.
 # Each CTA of it keeps one merge lane's O(K) vectors in shared memory: d,
@@ -119,3 +146,162 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', got "
                          f"device={device!r}")
     return dev
+
+
+# --------------------------------------------------------------------------
+# Persistent tuning cache (reader)
+# --------------------------------------------------------------------------
+
+
+def _device_type(device=None) -> str:
+    if device is None:
+        return pinned_backend()
+    return torch.device(device).type
+
+
+def cache_dir() -> str:
+    return os.path.expanduser(
+        os.environ.get(TUNE_CACHE_ENV) or _DEFAULT_CACHE_DIR)
+
+
+def _device_name(device_type: str) -> str:
+    if device_type != "cuda":
+        return device_type
+    try:
+        return torch.cuda.get_device_name(0)
+    except Exception:
+        return "unknown"
+
+
+def fingerprint(device=None) -> dict:
+    """What must match for a cache file's timings to be trusted here: the
+    device's name and the torch and CUDA versions."""
+    kind = _device_type(device)
+    return {"backend": kind, "device_name": _device_name(kind),
+            "torch": torch.__version__, "cuda": torch.version.cuda}
+
+
+def cache_path(device=None) -> str:
+    """Cache file path, one per device type (CPU and card runs on one box
+    never share a file).  The name is the port's own: the JAX package's
+    ``tune-<backend>.json`` in the same directory is never read."""
+    return os.path.join(cache_dir(),
+                        f"torch-tune-{_device_type(device)}.json")
+
+
+def coord_key(kind: str, *, n: int, bucket: int, dtype: str,
+              precision: str = "native", shards: int = 1,
+              k: int = 0) -> str:
+    """Serialize a tuning coordinate (the JAX package's format).  ``n`` is
+    the padded problem size for solve coordinates and the problem size
+    for range coordinates (``k`` carries the range slice bucket);
+    ``bucket`` == 0 means the route-level (batch-agnostic) entry."""
+    return f"{kind}|n{int(n)}|b{int(bucket)}|{dtype}|{precision}" \
+           f"|s{int(shards)}|k{int(k)}"
+
+
+def _load_locked(kind: str) -> dict:
+    """Load (memoized) the device type's cache entries; never raises.
+
+    A missing file is silent.  Any defect -- unreadable file, broken JSON,
+    wrong schema version, foreign fingerprint -- degrades to an empty
+    entry set with a single RuntimeWarning, so every consult falls back
+    to the built-in defaults.
+    """
+    entries = _CACHE.get(kind)
+    if entries is not None:
+        return entries
+    path = cache_path(kind)
+    entries = {}
+    error: str | None = None
+    if os.path.exists(path):
+        try:
+            with open(path) as f:
+                payload = json.load(f)
+            if not isinstance(payload, dict):
+                raise ValueError("tuning cache is not a JSON object")
+            if payload.get("version") != TUNE_CACHE_VERSION:
+                error = (f"version {payload.get('version')!r} != "
+                         f"{TUNE_CACHE_VERSION}")
+            elif payload.get("fingerprint") != fingerprint(kind):
+                error = (f"fingerprint {payload.get('fingerprint')!r} does "
+                         f"not match this machine {fingerprint(kind)!r}")
+            else:
+                raw = payload.get("entries")
+                if not isinstance(raw, dict):
+                    raise ValueError("tuning cache has no entries dict")
+                for key, ent in raw.items():
+                    if isinstance(ent, dict) and isinstance(
+                            ent.get("knobs"), dict):
+                        entries[key] = ent
+        except Exception as exc:  # corrupt/unreadable: degrade, never raise
+            error = f"{type(exc).__name__}: {exc}"
+        if error is not None:
+            entries = {}
+            warnings.warn(
+                f"ignoring tuning cache {path} ({error}); solves fall "
+                f"back to built-in defaults", RuntimeWarning, stacklevel=3)
+    _CACHE[kind] = entries
+    _CACHE_ERROR[kind] = error
+    return entries
+
+
+def reload_tuning_cache() -> None:
+    """Drop the loaded-cache memo; the next consult re-reads the file
+    (and re-resolves ``$REPRO_TUNE_CACHE``)."""
+    with _LOCK:
+        _CACHE.clear()
+        _CACHE_ERROR.clear()
+
+
+def lookup(kind: str, *, n: int, bucket: int = 0, dtype: str,
+           precision: str = "native", shards: int = 1, k: int = 0,
+           device=None) -> dict:
+    """Tuned knobs for a coordinate on ``device``'s type (falls back from
+    the exact batch bucket to the route-level ``bucket=0`` entry).
+    Returns ``{}`` when the coordinate was never tuned; never raises."""
+    with _LOCK:
+        entries = _load_locked(_device_type(device))
+        for b in ((bucket, 0) if bucket else (0,)):
+            ent = entries.get(coord_key(kind, n=n, bucket=b, dtype=dtype,
+                                        precision=precision, shards=shards,
+                                        k=k))
+            if ent is not None:
+                return dict(ent["knobs"])
+    return {}
+
+
+def serve_knobs(label: str, device=None) -> dict:
+    """Tuned serve-scheduler knobs (max_batch / max_wait_us) for a route
+    bucket label (``serve.metrics.bucket_label``) on ``device``'s type.
+    ``{}`` if untuned."""
+    with _LOCK:
+        ent = _load_locked(_device_type(device)).get(f"serve|{label}")
+        return dict(ent["knobs"]) if ent is not None else {}
+
+
+def note_route(used_tuned: bool) -> None:
+    """Provenance tick from the route resolvers (plan_cache_stats)."""
+    with _LOCK:
+        _CONSULTS["tuned_routes" if used_tuned else "default_routes"] += 1
+
+
+def reset_consult_stats() -> None:
+    with _LOCK:
+        _CONSULTS["tuned_routes"] = 0
+        _CONSULTS["default_routes"] = 0
+
+
+def tuning_stats(device=None) -> dict:
+    """Tuning-cache observability: file and fingerprint state, entry count
+    and the tuned/default route-provenance counters."""
+    kind = _device_type(device)
+    with _LOCK:
+        entries = _load_locked(kind)
+        return {"path": cache_path(kind),
+                "entries": len(entries),
+                "fingerprint": fingerprint(kind),
+                "error": _CACHE_ERROR.get(kind),
+                "backend": kind,
+                "tuned_routes": _CONSULTS["tuned_routes"],
+                "default_routes": _CONSULTS["default_routes"]}

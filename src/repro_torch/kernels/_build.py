@@ -28,6 +28,10 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Every kernel source of the port (csrc/<name>.cu).
+SOURCES = ("secular_roots", "fused_update", "resident_merge", "sturm_count",
+           "zhat", "boundary_update", "sterf", "deflate_chain")
+
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 

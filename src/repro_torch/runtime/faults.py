@@ -17,10 +17,17 @@ Instrumented sites of the port (grep for the literal string):
                          (``lane``/``width``), before the mixed-precision
                          stage: the "device returned garbage" scenario the
                          degradation ladder exists for.
+    ``serve.stage``   -- the serving engine's flush staging
+                         (``repro_torch.serve.engine``): a delay stalls
+                         it (the straggler monitor and watchdog see
+                         it), an error demotes the flush to the
+                         retry/fallback path.
+    ``serve.launch``  -- hit once per flush launch *attempt*, so a
+                         count-driven schedule can fail the first launch
+                         and let the transient retry succeed.
 
-The JAX package also hooks ``dist.halo``, ``serve.launch`` and
-``serve.stage``; the port's sharding and serving layers come in later
-slices, and the registry accepts those site names already.
+The JAX package also hooks ``dist.halo``; the port's sharding layer
+comes in a later slice, and the registry accepts that site name already.
 
 The fast path is one module-global boolean: with no schedule configured
 every hook is ``if not _ACTIVE: return`` and the solver's outputs are
