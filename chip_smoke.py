@@ -104,7 +104,32 @@ per source, in parallel), then:
      is); and times 64 x 4096 problems served as 64 concurrent requests,
      as one batch call and as a loop of 64 sync calls, with each flush's
      wall time, host time in the launch and in the leaf's
-     ``torch.linalg.eigh``, and stream span (CUDA events).
+     ``torch.linalg.eigh``, and stream span (CUDA events);
+  9. tunes and drives ``spectral/`` and ``optim/`` on the card, the
+     kernels' launch counts zeroed just before and read just after: runs
+     ``plan.tune`` (``$REPRO_TUNE_CACHE`` pointed at a temporary
+     directory, 3 timed rounds) on a B = 64 x 4096 solve, an n = 16384
+     k = 64 range solve and 64 n = 4096 requests served from 16 threads,
+     prints each winner with its default and tuned host wall, then checks
+     that a fresh consult carries the winners, that the B = 64 x 4096
+     batch with None knobs equals the batch with the same knobs given
+     explicitly bit for bit and holds the phase-3 reference at 64 eps,
+     and that ``plan_cache_stats()`` counts tuned routes, and restores
+     the cache; runs ``slq_spectrum`` (4 probes, m = 64, leaf 8) on the
+     Hessian-vector product (``make_hvp``) of a float32 tanh MLP with 2^24
+     weights and a fixed batch made on the card, directly and through an
+     ``EigensolverClient`` (``kind="slq"``), equal bit for bit, its nodes
+     within 64 eps of stebz on the same Krylov tridiagonals and each
+     probe's weights summing to 1 within 1e-12, and ``sharpness`` (m = 16)
+     direct and served, equal bit for bit; holds ``slq_spectrum`` on a
+     diagonal operator of 2^24 set eigenvalues (a bulk in [0.1, 1] and the
+     isolated ends -0.5 and 2.0) to its ends within 1e-4 and to its trace
+     within 1e-5 relative; and takes 20 ``adamw`` steps on the MLP with the
+     spectral governor's ``lr_scale``, probing every 5 steps through the
+     client, each served probe equal to a direct one bit for bit, its
+     target below the MLP's lam_max so that each scale is
+     max(min_scale, target / lam_max) strictly below 1, the first step's
+     update that scale times the ungoverned one, and the loss falling.
 
 Every check raises on failure.  The last lines are a JSON record of the
 kernels, the card's name and power limit, and the result line
@@ -759,6 +784,337 @@ def _phase8(torch, np, smi):
         reset_faults()
         br_dc._leaf_eigh = real_leaf
     print(f"[8 serve] phase 8 took {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _mlp(torch, dev, seed=2021):
+    """A float32 tanh MLP with 2^24 weights (1024 -> 2048 x 4 -> 1024) and
+    a fixed synthetic regression batch (256 samples), all made on the card
+    from ``seed``.  Returns (params, loss of params)."""
+    sizes = (1024, 2048, 2048, 2048, 2048, 1024)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {}
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        params[f"w{i}"] = torch.randn(a, b, generator=gen,
+                                      device=dev) / math.sqrt(a)
+        params[f"b{i}"] = torch.zeros(b, device=dev)
+    X = torch.randn(256, sizes[0], generator=gen, device=dev)
+    Y = torch.randn(256, sizes[-1], generator=gen, device=dev)
+
+    def loss(p):
+        h = X
+        for i in range(len(sizes) - 1):
+            h = h @ p[f"w{i}"] + p[f"b{i}"]
+            if i < len(sizes) - 2:
+                h = torch.tanh(h)
+        return torch.mean((h - Y) ** 2)
+
+    return params, loss
+
+
+def _phase9(torch, np, smi, Du, Eu, refs):
+    """Phase 9: the tuner and the route-time consult, SLQ, sharpness and
+    the spectral governor on the card (see the module docstring).  Raises
+    on any failed check; returns the phase's launch counts by kernel
+    name."""
+    import tempfile
+
+    import scipy.linalg as sla
+
+    from repro_torch.core import eigvalsh_tridiagonal_batch, plan_cache_stats
+    from repro_torch.core import plan as tplan
+    from repro_torch.core import tune as ttune
+    from repro_torch.kernels.deflate_chain import deflate_chain_cuda
+    from repro_torch.kernels.fused_update import secular_postpass_cuda
+    from repro_torch.kernels.resident_merge import resident_merge_cuda
+    from repro_torch.kernels.secular_roots import secular_solve_cuda
+    from repro_torch.kernels.sturm_count import (sturm_bisect_tree_cuda,
+                                                 sturm_count_cuda,
+                                                 sturm_count_newton_cuda)
+    from repro_torch.optim import SpectralGovernor, adamw
+    from repro_torch.serve import EigensolverClient
+    from repro_torch.spectral import (lanczos_tridiag_batch, make_hvp,
+                                      sharpness, slq_spectrum)
+    from repro_torch.spectral import slq as tslq
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda", 0)
+    eps = float(np.finfo(np.float64).eps)
+    kernels = {"resident_merge": resident_merge_cuda,
+               "secular_roots": secular_solve_cuda,
+               "fused_update": secular_postpass_cuda,
+               "deflate_chain": deflate_chain_cuda,
+               "sturm_count": sturm_count_cuda,
+               "sturm_count_newton": sturm_count_newton_cuda,
+               "sturm_bisect_tree": sturm_bisect_tree_cuda}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    for k in kernels.values():
+        k.launches = 0
+
+    # ---- (a) the tuner, then the route-time consult ---------------------
+    env = ttune.TUNE_CACHE_ENV
+    old = os.environ.get(env)
+    tmp = tempfile.mkdtemp(prefix="repro-torch-tune-")
+    os.environ[env] = tmp
+    tplan.clear_plan_cache()
+    try:
+        lines = []
+        spec = [{"kind": "solve", "n": 4096, "batch": 64},
+                {"kind": "range", "n": 16384, "k": 64},
+                {"kind": "serve", "n": 4096, "requests": 64, "threads": 16}]
+        report = tplan.tune(spec, iters=3, device=dev, log=lines.append)
+        for line in lines:
+            print(f"[9 tune] {line} ({smi})")
+        for coord, ent in sorted(report["entries"].items()):
+            print(f"[9 tune] {coord}: winner {ent['knobs']}, baseline "
+                  f"{ent['baseline_us']} us, tuned {ent['tuned_us']} us "
+                  f"(ratio {ent['ratio']}; host wall, best of 3) ({smi})")
+        print(f"[9 tune] tune_workload of {len(spec)} workloads took "
+              f"{report['seconds']:.1f} s; cache file "
+              f"{os.path.basename(report['path'])}")
+        with open(report["path"]) as f:
+            payload = json.load(f)
+        if payload["fingerprint"] != ttune.fingerprint(dev) or any(
+                ent["ratio"] < 1.0 for ent in payload["entries"].values()):
+            raise AssertionError(f"tune: bad cache file {payload}")
+
+        tplan.clear_plan_cache()     # a fresh consult, from the file
+        route = tplan.resolve_solve_route(4096, device=dev)
+        N0 = tplan.resolve_solve_route(4096, leaf=tplan.LEAF_DEFAULT,
+                                       device=dev).padded_n
+        leaf = ttune.lookup("solve", n=N0, dtype="float64", device=dev)
+        tree = ttune.lookup("solve", n=route.padded_n, dtype="float64",
+                            device=dev)
+        raced = set()
+        for coord, ent in payload["entries"].items():
+            if coord.startswith("solve|"):
+                raced |= set(ent["knobs"])
+        if (route.leaf != leaf["leaf"] or route.resident_threshold
+                != tree["resident_threshold"]
+                or raced != {"leaf", "resident_threshold"}):
+            raise AssertionError(f"tune: the route {route} does not carry "
+                                 f"the winners {leaf}, {tree}, or the card's "
+                                 f"entries hold knobs it does not race "
+                                 f"({raced})")
+        explicit = dict(leaf=route.leaf,
+                        stream_threshold=route.stream_threshold,
+                        deflate_budget=route.deflate_budget,
+                        resident_threshold=route.resident_threshold)
+        lam_t = eigvalsh_tridiagonal_batch(Du, Eu).eigenvalues
+        lam_e = eigvalsh_tridiagonal_batch(Du, Eu, **explicit).eigenvalues
+        if not (lam_t.is_cuda and torch.equal(lam_t, lam_e)):
+            raise AssertionError("tune: the tuned batch differs from the "
+                                 "explicit one")
+        lam = lam_t.cpu().numpy()
+        worst = max(float(np.abs(lam[b] - refs[("uniform", b)][0]).max())
+                    / refs[("uniform", b)][1] for b in range(len(lam)))
+        if worst > 64:
+            raise AssertionError(f"tune: the tuned B=64 x 4096 spectrum is "
+                                 f"{worst:.2f} eps*||T||_inf off (bar 64)")
+        stats = plan_cache_stats()
+        if stats["tuned_routes"] < 1:
+            raise AssertionError(f"tune: no tuned route {stats}")
+        range_knobs = tplan.resolve_range_route(16384, 64, device=dev)
+        print(f"[9 tune] fresh consult: resolve_solve_route(4096) leaf "
+              f"{route.leaf}, resident_threshold "
+              f"{route.resident_threshold}; range n=16384 k=64 maxiter "
+              f"{range_knobs.maxiter}, polish {range_knobs.polish}; the "
+              f"tuned B=64 x 4096 batch == the explicit one bit for bit, "
+              f"{worst:.2f} eps*||T||_inf from the phase-3 reference (bar "
+              f"64); tuned_routes {stats['tuned_routes']}, default_routes "
+              f"{stats['default_routes']}")
+    finally:
+        if old is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = old
+        ttune.reload_tuning_cache()
+        tplan.clear_plan_cache()
+
+    # ---- (b) SLQ on the Hessian of a 2^24-weight MLP ---------------------
+    params, loss = _mlp(torch, dev)
+    dim = sum(x.numel() for x in tree_leaves(params))
+    hvp = make_hvp(loss, params)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    (alpha, beta), lanczos_s = timed(lambda: lanczos_tridiag_batch(
+        hvp, tslq._probes(gen(90), params, 4), 64))
+    peak = torch.cuda.max_memory_allocated(dev)
+    direct, direct_s = timed(lambda: slq_spectrum(
+        hvp, params, gen(90), num_probes=4, num_steps=64, leaf=8))
+    with EigensolverClient(max_wait_us=1000) as client:
+        served, served_s = timed(lambda: slq_spectrum(
+            hvp, params, gen(90), num_probes=4, num_steps=64, leaf=8,
+            client=client))
+        sharp_s, sharp_served_s = timed(lambda: sharpness(
+            hvp, params, gen(91), num_steps=16, client=client))
+    sharp_d, sharp_direct_s = timed(lambda: sharpness(
+        hvp, params, gen(91), num_steps=16))
+    again, solve_s = timed(lambda: tslq._estimate(alpha, beta, dim, leaf=8))
+    for name, est in (("served", served), ("from the phase's Lanczos",
+                                            again)):
+        if not (np.array_equal(est.nodes, direct.nodes)
+                and np.array_equal(est.weights, direct.weights)
+                and est.trace_est == direct.trace_est):
+            raise AssertionError(f"slq: the {name} estimate differs from "
+                                 f"the direct one")
+    if sharp_s != sharp_d or not math.isfinite(sharp_s):
+        raise AssertionError(f"sharpness: served {sharp_s!r} != direct "
+                             f"{sharp_d!r}")
+    a64 = alpha.double().cpu().numpy()
+    b64 = beta.double().cpu().numpy()
+    worst = 0.0
+    for p in range(4):
+        ref = sla.eigh_tridiagonal(a64[p], b64[p], eigvals_only=True,
+                                   lapack_driver="stebz")
+        worst = max(worst, float(np.abs(direct.nodes[p] - ref).max())
+                    / (eps * max(1.0, _tinf(a64[p], b64[p]))))
+    wsum = float(np.abs(direct.weights.sum(axis=1) - 1.0).max())
+    if worst > 64 or wsum > 1e-12 or not np.isfinite(direct.nodes).all():
+        raise AssertionError(f"slq: nodes {worst:.2f} eps*||T||_inf from "
+                             f"stebz (bar 64), weight sums off 1 by {wsum}")
+    print(f"[9 slq] Hessian of a tanh MLP, {dim} float32 weights, 4 "
+          f"probes x m=64, leaf 8: Lanczos {lanczos_s:.2f} s (the first, "
+          f"peak device memory {peak / 2**30:.1f} GiB), the solve of its 4 "
+          f"tridiagonals {solve_s * 1e3:.1f} ms; slq_spectrum direct "
+          f"{direct_s:.2f} s, served {served_s:.2f} s (kind='slq'), equal "
+          f"bit for bit; nodes {worst:.2f} eps*||T||_inf from stebz (bar "
+          f"64); weight sums off 1 by {wsum:.1e} (bar 1e-12); lam_max "
+          f"{direct.lam_max:.6g}, lam_min {direct.lam_min:.6g}, trace_est "
+          f"{direct.trace_est:.6g} ({smi})")
+    print(f"[9 slq] sharpness (m=16): direct {sharp_direct_s * 1e3:.1f} ms, "
+          f"served {sharp_served_s * 1e3:.1f} ms (kind='edges'), both "
+          f"{sharp_d:.6g} bit for bit ({smi})")
+    del alpha, beta
+
+    # ---- (c) a known spectrum ---------------------------------------------
+    n_c = 1 << 24
+    spec_c = torch.empty(n_c, device=dev).uniform_(0.1, 1.0,
+                                                   generator=gen(92))
+    spec_c[n_c // 3], spec_c[n_c - 777] = -0.5, 2.0
+    diag = {"a": spec_c[: n_c // 4].reshape(2048, -1),
+            "b": spec_c[n_c // 4:]}
+    like = tree_map(torch.zeros_like, diag)
+    known, known_s = timed(lambda: slq_spectrum(
+        lambda v: tree_map(lambda d, x: d * x, diag, v), like, gen(93),
+        num_probes=4, num_steps=32, leaf=8))
+    trace = float(spec_c.double().sum())
+    inside = 64 * float(np.finfo(np.float32).eps) * 2.0
+    rel = abs(known.trace_est - trace) / abs(trace)
+    if not (-0.5 - inside <= known.lam_min <= -0.5 + 1e-4
+            and 2.0 - 1e-4 <= known.lam_max <= 2.0 + inside
+            and rel <= 1e-5):
+        raise AssertionError(f"slq known spectrum: lam_min "
+                             f"{known.lam_min!r}, lam_max {known.lam_max!r}"
+                             f", trace_est {known.trace_est!r} vs {trace!r}")
+    print(f"[9 slq] diagonal operator, {n_c} eigenvalues in [0.1, 1] plus "
+          f"-0.5 and 2.0, 4 probes x m=32: lam_min {known.lam_min:.7f}, "
+          f"lam_max {known.lam_max:.7f} (bar 1e-4), trace_est relative "
+          f"error {rel:.2e} (bar 1e-5); {known_s:.2f} s ({smi})")
+    del diag, like, spec_c
+
+    # ---- (d) 20 adamw steps governed by served probes --------------------
+    # The target lies below this MLP's lam_max (about 0.088 in (b)), so
+    # the governor damps every step: scale = target / lam_max is about 0.57,
+    # between min_scale and 1, and each probe's scale is checked against it.
+    target = 0.05
+    opt = adamw(lr=1e-4, weight_decay=0.0)
+    state = opt.init(params)
+    grad = torch.func.grad(loss)
+    g_served = SpectralGovernor(target_sharpness=target, period=5)
+    g_direct = SpectralGovernor(target_sharpness=target, period=5)
+    probe_gen = gen(94)
+    losses, probe_lams, probe_scales, probe_s = [], [], [], []
+    step_ratio = None
+    with EigensolverClient(max_wait_us=1000) as client:
+        t0 = time.perf_counter()
+        for step in range(20):
+            if g_served.should_probe(step):
+                hvp_at = make_hvp(loss, params)
+                saved = probe_gen.get_state()
+                t1 = time.perf_counter()
+                g_served.probe(hvp_at, params, probe_gen, num_steps=16,
+                               client=client)
+                probe_s.append(time.perf_counter() - t1)
+                probe_gen.set_state(saved)
+                g_direct.probe(hvp_at, params, probe_gen, num_steps=16)
+                if (g_served.lam_max != g_direct.lam_max
+                        or g_served.scale != g_direct.scale):
+                    raise AssertionError(
+                        f"governor step {step}: served probe "
+                        f"{g_served.lam_max!r} != direct "
+                        f"{g_direct.lam_max!r}")
+                want = max(g_served.min_scale,
+                           min(1.0, target / g_served.lam_max))
+                if not (g_served.scale == want
+                        and g_served.min_scale < g_served.scale < 1.0):
+                    raise AssertionError(
+                        f"governor step {step}: lr_scale "
+                        f"{g_served.scale!r}, expected {want!r} strictly "
+                        f"between min_scale and 1 (lam_max "
+                        f"{g_served.lam_max!r}, target {target})")
+                probe_lams.append(g_served.lam_max)
+                probe_scales.append(g_served.scale)
+            losses.append(float(loss(params)))
+            g = grad(params)
+            new_params, new_state = opt.apply(params, g, state,
+                                              lr_scale=g_served.scale)
+            if step_ratio is None:
+                # The update takes the scale: the governed step is the
+                # ungoverned one times lr_scale (float32 rounding aside).
+                free, _ = opt.apply(params, g, state, lr_scale=1.0)
+                num = sum(float(((a - p).double() ** 2).sum()) for a, p in
+                          zip(tree_leaves(new_params), tree_leaves(params)))
+                den = sum(float(((a - p).double() ** 2).sum()) for a, p in
+                          zip(tree_leaves(free), tree_leaves(params)))
+                step_ratio = math.sqrt(num / den)
+                if abs(step_ratio / g_served.scale - 1.0) > 1e-3:
+                    raise AssertionError(
+                        f"governed adamw step: update norm ratio "
+                        f"{step_ratio!r} vs lr_scale {g_served.scale!r}")
+                del free
+            params, state = new_params, new_state
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    final = float(loss(params))
+    if not (final < losses[0] and all(math.isfinite(x) for x in losses)
+            and math.isfinite(g_served.lam_max)):
+        raise AssertionError(f"governed adamw: loss {losses[0]} -> "
+                             f"{final}, lam_max {g_served.lam_max!r}")
+    print(f"[9 train] 20 adamw steps (lr 1e-4) on the MLP, lr_scale from "
+          f"the governor: loss {losses[0]:.5f} -> {final:.5f}; {len(probe_s)}"
+          f" served probes (m=16) at steps 0, 5, 10, 15, each == its direct "
+          f"probe bit for bit: lam_max (EMA) {[f'{x:.5g}' for x in probe_lams]}"
+          f", target {target}, lr_scale "
+          f"{[f'{x:.5g}' for x in probe_scales]} (each max(min_scale, "
+          f"target / lam_max)); step 0's update / the ungoverned update "
+          f"{step_ratio:.6f}; probe wall "
+          f"{[round(x * 1e3, 1) for x in probe_s]} ms; 20 steps with probes "
+          f"{train_s:.2f} s ({smi})")
+
+    # ---- (e) counts --------------------------------------------------------
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"[9 counts] launches in phase 9: {launches}")
+    # The tuner's candidates below K = 2048 run the root solve and the
+    # post-pass; SLQ the resident merge; edges, sharpness and the range
+    # tuning the bisection tree and Newton.
+    for name in ("resident_merge", "secular_roots", "fused_update",
+                 "deflate_chain", "sturm_bisect_tree", "sturm_count_newton"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 9: {name} never launched")
+    print(f"[9 time] phase 9 took {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})")
     return launches
 
 
@@ -2071,6 +2427,9 @@ def main() -> int:
     # ---- phase 8: the eigensolver service --------------------------------
     serve_launches = _phase8(torch, np, smi)
 
+    # ---- phase 9: tuning, SLQ, sharpness and the governor ----------------
+    phase9_launches = _phase9(torch, np, smi, Du, Eu, refs)
+
     sources = {"secular_roots": ("src/repro_torch/csrc/secular_roots.cu",
                                  "src/repro/kernels/secular_roots.py:265"),
                "fused_update": ("src/repro_torch/csrc/fused_update.cu",
@@ -2307,8 +2666,9 @@ def main() -> int:
                 (512, "W=8 r=K=512 glued_wilkinson f64 (R = I)"),
                 (2048, "W=2 r=K=2048 glued lazy n=4096 f64"),
                 (4096, "W=1 r=K=4096 glued lazy n=4096 f64"))}})
-    for rec in out:   # phase 8's own counts, beside the main path's
+    for rec in out:   # phases 8 and 9's own counts, beside the main path's
         rec["serve_launches"] = int(serve_launches.get(rec["name"], 0))
+        rec["phase9_launches"] = int(phase9_launches.get(rec["name"], 0))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -298,7 +298,7 @@ def eigvalsh_tridiagonal_br(d, e, *, leaf: int | None = None,
         one = torch.ones((1,), dtype=d.dtype, device=dev)
         SOLVE_COUNTER.increment()
         return BRResult(d[0], one, one, ())
-    leaf = _plan.resolve_leaf(leaf, n, d.dtype, precision)
+    leaf = _plan.resolve_leaf(leaf, n, d.dtype, precision, dev)
     _, L = _tree_shape(n, leaf)
     p = _plan.make_plan(n, 1, leaf=leaf, chunk=chunk, niter=niter,
                         use_zhat=use_zhat,

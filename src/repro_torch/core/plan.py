@@ -15,10 +15,10 @@ tree's identity -- the analogue of the JAX package's trace counter (a
 second same-bucket request builds nothing, and ``certify`` is not part of
 the tree's identity).  ``RANGE_EXECUTOR_TRACES`` counts range-plan builds
 the same way.  :func:`prewarm` builds the plans (and, on the card, the
-kernels) of an expected workload before traffic arrives;
-:func:`tuning_stats` reports the tuning cache's reader
-(``repro_torch.core.tune``).  Sharding, ``plan.tune`` and the route-time
-consult of the tuning cache come in later slices.
+kernels) of an expected workload before traffic arrives; :func:`tune`
+sweeps the knobs on the device and persists the winners to the tuning
+cache (``repro_torch.core.tune``), which the route resolvers consult for
+every knob that arrives as ``None``.  Sharding comes in a later slice.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ from repro_torch.core.instrument import SolveCounter
 from repro_torch.core.tune import resolve_device  # noqa: F401 (re-export)
 from repro_torch.runtime import faults as _faults
 
-# Built-in leaf block size (the tuning cache that may override it comes in
-# a later slice).
+# Built-in leaf block size; ``leaf=None`` resolves to the tuning cache's
+# winner for the coordinate (if any) and falls back to this.
 LEAF_DEFAULT = 32
 
 # Incremented once per executor build (a tree identity seen first).
@@ -98,10 +98,26 @@ def batch_bucket(batch: int) -> int:
     return 1 << (batch - 1).bit_length()
 
 
-def resolve_leaf(leaf, n: int, dtype, precision: str = "native") -> int:
-    """Resolve the ``leaf`` knob (``None`` -> the built-in default; the
-    tuning cache of a later slice will be consulted here)."""
-    return LEAF_DEFAULT if leaf is None else int(leaf)
+def _tuned_leaf(n: int, dtype_name: str, precision: str, dev):
+    """Tuning-cache leaf for a request size on ``dev``'s type, as (leaf,
+    came_from_cache).  The coordinate is the padded size under
+    ``LEAF_DEFAULT`` (the only tree shape known before the knob
+    resolves); the tuner writes its ``leaf`` winner there."""
+    N0, _ = _br._tree_shape(n, LEAF_DEFAULT)
+    tuned = _tune.lookup("solve", n=N0, dtype=dtype_name,
+                         precision=precision, device=dev)
+    return int(tuned.get("leaf", LEAF_DEFAULT)), "leaf" in tuned
+
+
+def resolve_leaf(leaf, n: int, dtype, precision: str = "native",
+                 device=None) -> int:
+    """Resolve the ``leaf`` knob exactly as ``resolve_solve_route`` does,
+    so request routing's single-leaf (L == 0) check agrees with the
+    route even when the tuning cache overrides the default."""
+    if leaf is not None:
+        return int(leaf)
+    return _tuned_leaf(n, _dtype_name(dtype), precision,
+                       resolve_device(device))[0]
 
 
 def _dtype_name(dtype) -> str:
@@ -135,9 +151,12 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
                         certify: bool = False) -> PlanKey:
     """Resolve a full-spectrum request to its bucketed route key -- pure.
 
-    Every request-determined field is concrete (None knobs resolved to
-    the defaults of the device's type) and the batch axis unresolved
-    (``batch_bucket == 0``).  Knobs of later slices raise
+    Every request-determined field is concrete and the batch axis
+    unresolved (``batch_bucket == 0``).  Each knob that arrives as None
+    resolves to the tuning cache's winner for the route's coordinate on
+    the device's type first and to that type's default second; explicit
+    knobs always win, so a tuned request and an explicit request with the
+    same values resolve to the same key.  Sharding knobs raise
     NotImplementedError naming the ROADMAP item that brings them.
     """
     if n < 1:
@@ -171,21 +190,38 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
                 f"refine_tol must be positive (eps * ||T|| units), "
                 f"got {refine_tol}")
     if mesh not in ("auto", None, 1) or compress_halo:
-        raise _not_ported("sharded solves (mesh, compress_halo)", "item 13")
+        raise _not_ported("sharded solves (mesh, compress_halo)",
+                          "item 4, dist/")
     dev = resolve_device(device)
     dtype_name = _dtype_name(torch.float64 if dtype is None else dtype)
     if niter is None:
         niter = (_sec.DEFAULT_NITER_F32
                  if dtype_name == "float32" or precision == "mixed"
                  else _sec.DEFAULT_NITER)
-    leaf = resolve_leaf(leaf, n, dtype_name)
+    consulted = used_tuned = False
+    if leaf is None:
+        consulted = True
+        leaf, used_tuned = _tuned_leaf(n, dtype_name, precision, dev)
     N, _ = _br._tree_shape(n, leaf)
-    if stream_threshold is None:
-        stream_threshold = _merge.default_stream_threshold(dev)
-    if deflate_budget is None:
-        deflate_budget = _merge.DEFAULT_DEFLATE_BUDGET
-    if resident_threshold is None:
-        resident_threshold = _merge.default_resident_threshold(dev)
+    if (stream_threshold is None or deflate_budget is None
+            or resident_threshold is None):
+        consulted = True
+        tuned = _tune.lookup("solve", n=N, dtype=dtype_name,
+                             precision=precision, device=dev)
+        if stream_threshold is None:
+            used_tuned |= "stream_threshold" in tuned
+            stream_threshold = tuned.get(
+                "stream_threshold", _merge.default_stream_threshold(dev))
+        if deflate_budget is None:
+            used_tuned |= "deflate_budget" in tuned
+            deflate_budget = tuned.get("deflate_budget",
+                                       _merge.DEFAULT_DEFLATE_BUDGET)
+        if resident_threshold is None:
+            used_tuned |= "resident_threshold" in tuned
+            resident_threshold = tuned.get(
+                "resident_threshold", _merge.default_resident_threshold(dev))
+    if consulted:
+        _tune.note_route(used_tuned)
     return PlanKey(padded_n=N, leaf=leaf, batch_bucket=0, dtype=dtype_name,
                    chunk=int(chunk), niter=int(niter), use_zhat=use_zhat,
                    return_boundary=return_boundary,
@@ -478,11 +514,19 @@ def make_plan(n: int, batch: int = 1, *, leaf: int | None = None,
 
 def plan_for_route(route: PlanKey, batch: int = 1) -> SolvePlan:
     """Fix a route key's batch axis and build (or fetch) its SolvePlan.
-    ``certify`` (and a native route's certification tolerance) is the
-    request finalizer's business, not the tree's: it is stripped here, so
+    The batch bucket is known only here, so this is where the chunk tuned
+    for it applies (at most the route's requested chunk).  ``certify``
+    (and a native route's certification tolerance) is the request
+    finalizer's business, not the tree's: it is stripped here, so
     certified traffic shares the uncertified plan."""
+    bucket = batch_bucket(batch)
+    tuned_chunk = _tune.lookup(
+        "solve", n=route.padded_n, bucket=bucket, dtype=route.dtype,
+        precision=route.precision, device=route.device).get("chunk")
+    chunk = (max(8, min(route.chunk, int(tuned_chunk))) if tuned_chunk
+             else route.chunk)
     key = route._replace(
-        batch_bucket=batch_bucket(batch), certify=False,
+        batch_bucket=bucket, chunk=chunk, certify=False,
         refine_tol=route.refine_tol if route.precision == "mixed" else 0.0)
     N, leaf = key.padded_n, key.leaf
     L = (N // leaf).bit_length() - 1
@@ -510,18 +554,29 @@ def resolve_range_route(n: int, k: int, *, maxiter: int | None = None,
                         device=None) -> RangePlanKey:
     """Resolve a sliced-solve request to its bucketed route key -- pure.
     The batch axis stays unresolved (``batch_bucket == 0``); None knobs
-    resolve to the built-in defaults."""
+    resolve to the tuning cache's winner for the (n, k bucket, dtype)
+    coordinate on the device's type first, the built-in default second."""
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
     if not (1 <= k <= n):
         raise ValueError(f"k must be in [1, n]; got k={k}, n={n}")
     dev = resolve_device(device)
+    dtype_name = _dtype_name(torch.float64 if dtype is None else dtype)
+    k_bucket = min(batch_bucket(k), n)
+    if maxiter is None or polish is None:
+        tuned = _tune.lookup("range", n=n, dtype=dtype_name, k=k_bucket,
+                             device=dev)
+        used_tuned = False
+        if maxiter is None:
+            used_tuned |= "maxiter" in tuned
+            maxiter = tuned.get("maxiter", _bis.DEFAULT_MAX_BISECT)
+        if polish is None:
+            used_tuned |= "polish" in tuned
+            polish = tuned.get("polish", _bis.DEFAULT_POLISH)
+        _tune.note_route(used_tuned)
     return RangePlanKey(
-        n=n, k_bucket=min(batch_bucket(k), n), batch_bucket=0,
-        dtype=_dtype_name(torch.float64 if dtype is None else dtype),
-        maxiter=int(_bis.DEFAULT_MAX_BISECT if maxiter is None else maxiter),
-        polish=int(_bis.DEFAULT_POLISH if polish is None else polish),
-        device=str(dev))
+        n=n, k_bucket=k_bucket, batch_bucket=0, dtype=dtype_name,
+        maxiter=int(maxiter), polish=int(polish), device=str(dev))
 
 
 def make_range_plan(n: int, k: int, batch: int = 1, *,
@@ -554,7 +609,10 @@ def plan_cache_stats() -> dict:
     """Plan-cache observability: size, hits, misses, executor builds and
     the summed persistent-state byte model of the cached plans, for the
     full-spectrum and the range caches, plus the certify/refine executor
-    builds and the robustness counters."""
+    builds, the tuning provenance (routes resolved on tuned and on
+    default knobs, and the cache file's identity) and the robustness
+    counters."""
+    provenance = _tuning_provenance()
     with _PLAN_LOCK:
         return {"size": len(_PLAN_CACHE), "hits": _STATS["hits"],
                 "misses": _STATS["misses"],
@@ -568,7 +626,17 @@ def plan_cache_stats() -> dict:
                 "range_state_bytes": sum(p.state_bytes
                                          for p in _RANGE_CACHE.values()),
                 "refine_executor_traces": _bis.REFINE_EXECUTOR_TRACES.count,
+                **provenance,
                 **_guard.robustness_counters()}
+
+
+def _tuning_provenance() -> dict:
+    ts = _tune.tuning_stats()
+    return {"tuned_routes": ts["tuned_routes"],
+            "default_routes": ts["default_routes"],
+            "tuning_cache": {"path": ts["path"], "entries": ts["entries"],
+                             "fingerprint": ts["fingerprint"],
+                             "error": ts["error"]}}
 
 
 def clear_plan_cache() -> None:
@@ -594,18 +662,26 @@ def clear_plan_cache() -> None:
     _tune.reload_tuning_cache()
 
 
-def tuning_stats() -> dict:
+def tune(workload_spec, **kw) -> dict:
+    """Sweep the knob space on the device (``device=``, default the card)
+    for a workload and persist the winners to the tuning cache that
+    ``resolve_solve_route``, ``resolve_range_route``, ``plan_for_route``
+    and the serve scheduler consult.  See
+    :func:`repro_torch.core.tune.tune_workload` for the spec format."""
+    return _tune.tune_workload(workload_spec, **kw)
+
+
+def tuning_stats(device=None) -> dict:
     """Tuning-cache observability (file, fingerprint, entry count, and
     tuned/default route counters); see ``repro_torch.core.tune``."""
-    return _tune.tuning_stats()
+    return _tune.tuning_stats(device)
 
 
 # Workload-spec kind aliases accepted by ``prewarm``; "solve" is the
 # stacked ("batch") form.  Each resolves through the routing rules its
 # real traffic uses ("full" carries the single-problem L == 0
-# boundary-rows rule), so the plan built is exactly the one the first
-# request needs.  "slq" routes like its requests, which raise
-# NotImplementedError until spectral/ is ported.
+# boundary-rows rule, "slq" always has boundary rows), so the plan built
+# is exactly the one the first request needs.
 _PREWARM_KIND_ALIASES = {"solve": "batch", "batch": "batch", "full": "full",
                          "slq": "slq"}
 
@@ -622,6 +698,7 @@ def prewarm(workload_spec) -> dict:
 
         {"kind": "solve", "n": 1024, "batch": 64, **make_plan knobs}
         {"kind": "full",  "n": 16}                  # single-problem API
+        {"kind": "slq",   "n": 64, "batch": 8, "leaf": 8}  # SLQ probes
         {"kind": "range", "n": 4096, "k": 32, "batch": 8, **knobs}
         {"kind": "edges", "n": 16, "k": 1, "batch": 1}   # monitor probes
 

@@ -11,14 +11,15 @@ resolves the bucketed key the launch will use: a
 the Sturm-count path (``kind="range"``, ``kind="edges"``,
 ``method="bisect"``).  The baseline methods ("sterf", "lazy", "full",
 "eigh") and the n == 1 short circuits route to None and run directly, one
-problem at a time.  Kinds of later slices raise NotImplementedError
-naming the ROADMAP item that brings them.
+problem at a time.
 
 Request kinds:
 
     full   -- one problem, all eigenvalues            -> (n,)
     batch  -- B stacked problems, all eigenvalues     -> (B, n)
     range  -- selected eigenvalues by index or value  -> (k,) / (B, k)
+    slq    -- batch + boundary rows (the SLQ quadrature rule: nodes are
+              the eigenvalues, weights are blo(Q)^2)  -> (B, n) + rows
     edges  -- k smallest + k largest of each problem  -> (2B, k)
               (rows [0, B) the ascending bottom-k, rows [B, 2B) the
               ascending top-k -- the spectral monitor's probe), routed
@@ -41,9 +42,6 @@ from repro_torch.runtime import faults as _faults
 KINDS = ("full", "batch", "range", "slq", "edges")
 
 METHODS = ("br", "sterf", "lazy", "full", "eigh", "bisect")
-
-# What brings the kinds this port does not run yet.
-_LATER_KINDS = {"slq": "Queue 1 item 11 (spectral/)"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,10 +141,6 @@ def _normalize(req: SolveRequest):
     if req.method not in METHODS:
         raise ValueError(
             f"unknown method {req.method!r}; choose from {METHODS}")
-    if req.kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"kind={req.kind!r} is not ported to repro_torch yet (ROADMAP "
-            f"{_LATER_KINDS[req.kind]})")
     if req.deadline_ms is not None:
         deadline = float(req.deadline_ms)
         if not (deadline > 0.0) or not np.isfinite(deadline):
@@ -167,7 +161,7 @@ def _normalize(req: SolveRequest):
     if req.kind == "full" and not single:
         raise ValueError(
             f"kind='full' expects 1-D d, got shape {tuple(d.shape)}")
-    if req.kind in ("batch", "edges") and single:
+    if req.kind in ("batch", "slq", "edges") and single:
         raise ValueError(
             f"kind={req.kind!r} expects stacked (B, n) d, got 1-D")
     if single:
@@ -200,7 +194,7 @@ def _cat_rows(a):
 
 def route_request(req: SolveRequest) -> RoutedRequest:
     """Resolve a request to its (batch-unresolved) plan key; raises on
-    malformed requests and on kinds, methods and knobs of later slices.
+    malformed requests and on knobs of later slices.
     Touches no plan cache; the only device work is the two Sturm counts
     a ``select="v"`` window needs."""
     from repro_torch.core import plan as _plan
@@ -208,9 +202,11 @@ def route_request(req: SolveRequest) -> RoutedRequest:
     B, n = d.shape
     kw = {k: v for k, v in req.knobs.items() if k != "return_boundary"}
 
-    if req.method != "br" and req.return_boundary:
+    if req.method != "br" and (req.return_boundary or req.kind == "slq"):
+        # Boundary rows are BR selected-row state: a result without them
+        # would let a caller believe the flag took effect.
         raise TypeError(
-            "return_boundary requires method='br'; got "
+            "return_boundary (and kind='slq') require method='br'; got "
             f"method={req.method!r}")
 
     if req.kind == "edges":
@@ -220,7 +216,7 @@ def route_request(req: SolveRequest) -> RoutedRequest:
         if req.return_boundary:
             raise TypeError(
                 "kind='edges' returns extremal eigenvalues only; boundary "
-                "rows are full-conquer state")
+                "rows are full-conquer state (use kind='slq')")
         if (req.il, req.iu, req.vl, req.vu) != (None, None, None, None):
             raise ValueError(
                 "kind='edges' selects its own index windows (bottom-k and "
@@ -259,13 +255,14 @@ def route_request(req: SolveRequest) -> RoutedRequest:
                              single=single, scale=scale)
 
     if req.method == "br" and n > 1:
-        return_boundary = req.return_boundary
+        return_boundary = req.return_boundary or req.kind == "slq"
         if req.kind == "full":
             # Single (possibly padded) leaf trees return their boundary
             # rows for free (eigvalsh_tridiagonal_br's L == 0 contract).
             from repro_torch.core.br_dc import _tree_shape
             leaf = _plan.resolve_leaf(kw.get("leaf"), n, d.dtype,
-                                      kw.get("precision", "native"))
+                                      kw.get("precision", "native"),
+                                      req.device)
             return_boundary = return_boundary or _tree_shape(n, leaf)[1] == 0
         route = _plan.resolve_solve_route(
             n, return_boundary=return_boundary, dtype=d.dtype,
@@ -583,7 +580,8 @@ def execute_request(req: SolveRequest | RoutedRequest) -> SolveResult:
         lam, _ = _br._as_batch(routed.d, routed.e, None, dev)
         _br.SOLVE_COUNTER.increment()
         ones = torch.ones_like(lam)
-        blo = bhi = ones if req.return_boundary else None
+        rows = req.return_boundary or req.kind == "slq"
+        blo = bhi = ones if rows else None
         cert = None
         if req.certify:
             from repro_torch.core import bisect as _bis

@@ -45,6 +45,9 @@ from repro_torch.core import (METHODS, SolveRequest,  # noqa: E402
 from repro_torch.core import baselines as tbl  # noqa: E402
 from repro_torch.core import secular as tsec  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 EPS = np.finfo(np.float64).eps
 CPU = "cpu"
 

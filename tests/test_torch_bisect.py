@@ -42,6 +42,9 @@ from repro_torch.core import (FAMILIES, RANGE_EXECUTOR_TRACES,  # noqa: E402
 from repro_torch.core import bisect as tbis  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 EPS = np.finfo(np.float64).eps
 CPU = "cpu"
 
@@ -311,10 +314,31 @@ def test_range_runs_on_the_card_by_default(monkeypatch):
 
 @pytest.mark.parametrize("kind", ["slq"])
 def test_slq_still_raises_naming_its_item(kind):
-    d, e = make_family("uniform", 40, seed=6)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        execute_request(SolveRequest(d=np.stack([d]), e=np.stack([e]),
-                                     kind=kind, device=CPU))
+    """kind='slq' runs now: it routes as the JAX package's slq does, to a
+    boundary-row batch key with the same fields, and only with
+    method='br' and stacked input."""
+    from repro_torch.core import route_request
+    D, E = make_family_batch("uniform", 40, 3, seed0=6)
+    knobs = {"leaf": 8}
+    got = route_request(SolveRequest(d=D, e=E, kind=kind, knobs=knobs,
+                                     device=CPU)).route
+    want = jreq.route_request(jreq.SolveRequest(d=D, e=E, kind=kind,
+                                                knobs=knobs)).route
+    fields = ("padded_n", "leaf", "batch_bucket", "dtype", "chunk", "niter",
+              "use_zhat", "return_boundary", "tol_factor",
+              "stream_threshold", "deflate_budget", "resident_threshold",
+              "fused", "precision", "refine_tol", "certify")
+    assert {f: getattr(got, f) for f in fields} == \
+        {f: getattr(want, f) for f in fields}
+    assert got.return_boundary
+    res = execute_request(SolveRequest(d=D, e=E, kind=kind, knobs=knobs,
+                                       device=CPU))
+    assert res.blo is not None and res.blo.shape == D.shape
+    with pytest.raises(TypeError, match="slq"):
+        execute_request(SolveRequest(d=D, e=E, kind=kind, method="sterf",
+                                     device=CPU))
+    with pytest.raises(ValueError, match="stacked"):
+        execute_request(SolveRequest(d=D[0], e=E[0], kind=kind, device=CPU))
 
 
 # ------------------------------------------------------------------ edges

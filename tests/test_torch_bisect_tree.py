@@ -29,6 +29,9 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.sturm_count import (  # noqa: E402
     launch_shape, sturm_bisect_tree_cuda)
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 DEPTHS = [1, 2, 3, 5, 8]
 DTYPES = [torch.float64, torch.float32]
 FAMILIES = ["uniform", "glued_wilkinson", "clustered"]

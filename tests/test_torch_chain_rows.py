@@ -45,6 +45,9 @@ from repro_torch.core import merge as tmerge  # noqa: E402
 from repro_torch.core.tridiag import make_family  # noqa: E402
 from repro_torch.kernels import deflate_chain as dck  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 pytestmark = pytest.mark.deflation
 
 DTYPES = {"float64": torch.float64, "float32": torch.float32}

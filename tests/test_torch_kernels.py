@@ -56,6 +56,9 @@ from repro_torch.kernels.sturm_count import (  # noqa: E402
     sturm_count_newton_cuda)
 from repro_torch.core import bisect as tbis  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 SRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
 
 

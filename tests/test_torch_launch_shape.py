@@ -21,6 +21,9 @@ from repro_torch.core.br_dc import _tree_shape  # noqa: E402
 from repro_torch.core.tune import RESIDENT_THRESHOLD_CUDA  # noqa: E402
 from repro_torch.kernels import resident_merge as rm  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 H100_SMS = 132
 LEAF = 32
 

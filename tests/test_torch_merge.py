@@ -21,6 +21,9 @@ from repro_torch.core import merge as tmerge  # noqa: E402
 from repro_torch.core.tridiag import make_family  # noqa: E402
 
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _release_compiled_executables():
     # The JAX reference compiles one executable per shape here; XLA:CPU

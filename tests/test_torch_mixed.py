@@ -42,6 +42,9 @@ from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.runtime import faults as tfaults  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 EPS = np.finfo(np.float64).eps
 TOL = tbis.DEFAULT_REFINE_TOL
 CPU = "cpu"

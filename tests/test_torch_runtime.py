@@ -17,6 +17,9 @@ import repro_torch.runtime as t_runtime
 import repro_torch.runtime.retry as t_retry
 
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 def _namespace(pkg, retry_mod):
     return types.SimpleNamespace(
         retry_transient=pkg.retry_transient, Watchdog=pkg.Watchdog,

@@ -23,6 +23,9 @@ from repro_torch.core import secular as tsec  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 SHAPES = [(32, 17), (64, 64), (130, 101)]
 
 

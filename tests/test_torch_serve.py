@@ -56,6 +56,9 @@ from repro_torch.serve import (CoalescingScheduler,  # noqa: E402
                                bucket_label)
 from repro_torch.serve.engine import _host_pad  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 CPU = "cpu"
 EPS = np.finfo(np.float64).eps
 SRC = os.path.join(os.path.dirname(os.path.dirname(
@@ -601,15 +604,22 @@ def test_prewarm_full_kind_covers_leaf_sized_requests():
 
 
 def test_prewarm_slq_raises_what_the_request_path_raises():
+    """kind='slq' prewarm builds the plan a served slq flush uses (the
+    boundary-row plan with the tracked-row input): the served request
+    adds no plan-cache miss, and its answer is the sync one, bit for bit.
+    Unknown prewarm kinds still raise."""
     spec = [{"kind": "slq", "n": 16, "batch": 4, "leaf": 8, "device": CPU}]
-    with pytest.raises(NotImplementedError, match="slq"):
-        tplan.prewarm(spec)
-    with pytest.raises(NotImplementedError, match="slq"):
-        execute_request(SolveRequest(d=np.ones((4, 16)),
-                                     e=np.zeros((4, 15)), kind="slq",
-                                     device=CPU))
-    with pytest.raises(NotImplementedError, match="slq"):
-        EigensolverClient(prewarm=spec)
+    rng = np.random.default_rng(5)
+    D, E = rng.normal(size=(3, 16)), rng.normal(size=(3, 15))
+    req = SolveRequest(d=D, e=E, kind="slq", knobs={"leaf": 8}, device=CPU)
+    with EigensolverClient(prewarm=spec, max_wait_us=1000) as client:
+        t0 = plan_cache_stats()
+        res = client.submit(req).result(timeout=600)
+        t1 = plan_cache_stats()
+    for key in ("misses", "executor_traces"):
+        assert t1[key] == t0[key], key
+    assert res.blo is not None and res.blo.shape == (3, 16)
+    _same(res, execute_request(req))
     with pytest.raises(ValueError, match="unknown prewarm kind"):
         tplan.prewarm([{"kind": "nope", "n": 16, "device": CPU}])
 
@@ -726,6 +736,10 @@ def test_serve_persistent_transient_fault_exhausts_budget_then_falls_back():
 # at least STRAGGLER_MIN_DELAY_S), so no host timing can hide it.
 STRAGGLER_MARGIN = 10.0
 STRAGGLER_MIN_DELAY_S = 0.25
+# Every baseline flush stalls this long at staging, so the median the
+# monitor learns is the injected stall's and not the host's: a baseline
+# flush is flagged only if the host stalls it by another 30%.
+STRAGGLER_BASELINE_DELAY_S = 0.1
 
 
 def _monitor_limit(mon) -> float:
@@ -741,6 +755,8 @@ def test_serve_stage_delay_trips_the_straggler_monitor():
     (measured from the baseline flushes just run) is flagged: the case
     does not depend on how fast this host solves."""
     probs = _problems(32, 11, seed=31)
+    configure_faults([FaultSpec(site="serve.stage", kind="delay", times=(),
+                                delay_s=STRAGGLER_BASELINE_DELAY_S)])
     with _client(max_wait_us=100, straggler_window=16,
                  straggler_threshold=3.0) as client:
         for d, e in probs[:10]:     # closed loop: one flush per request
@@ -836,8 +852,9 @@ def fresh_cache(tmp_path, monkeypatch):
 
 
 def _write_port_cache(tmp_path, entries, device=CPU):
-    """A cache file in the port's format, written by hand (the writer
-    comes with plan.tune)."""
+    """A cache file in the port's format, written by hand (not by the
+    writer, ``tune._save_entries``, whose own tests are in
+    tests/test_torch_tune.py)."""
     payload = {"version": ttune.TUNE_CACHE_VERSION,
                "fingerprint": ttune.fingerprint(device),
                "entries": {k: {"knobs": v, "ratio": 1.0}
@@ -884,9 +901,11 @@ def test_corrupt_cache_one_warning_and_default_limits(fresh_cache):
     with open(ttune.cache_path(CPU), "w") as f:
         f.write("{not json at all")
     d, e = _problem(32)
-    route = route_request(SolveRequest(d=d, e=e, device=CPU)).route
     sched = CoalescingScheduler(ServeConfig(max_batch=64, max_wait_us=2000))
     with pytest.warns(RuntimeWarning, match="ignoring tuning cache") as rec:
+        # Routing consults the cache first (the route-time consult), then
+        # the scheduler's limits: one warning for both.
+        route = route_request(SolveRequest(d=d, e=e, device=CPU)).route
         assert sched._limits_for(route) == (64, 2000)
     assert len([w for w in rec if issubclass(w.category,
                                              RuntimeWarning)]) == 1

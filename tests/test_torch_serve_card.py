@@ -29,6 +29,9 @@ from repro_torch.serve import (CoalescingScheduler,  # noqa: E402
                                EigensolverClient, ServeConfig, ServeEngine)
 from repro_torch.serve.engine import _flush_ready  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 pytestmark = pytest.mark.gpu
 
 # Cycles of torch.cuda._sleep that keep a stream busy for well over 100 ms

@@ -32,6 +32,9 @@ from repro_torch.core import (EXECUTOR_TRACES, SOLVE_COUNTER,  # noqa: E402
 from repro_torch.core import plan as tplan  # noqa: E402
 from repro_torch.core import request as treq  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 EPS = np.finfo(np.float64).eps
 
 

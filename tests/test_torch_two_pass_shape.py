@@ -29,6 +29,9 @@ from repro_torch.core import sterf as tsterf  # noqa: E402
 from repro_torch.kernels import boundary_update as bu  # noqa: E402
 from repro_torch.kernels import sterf as ks  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 CSRC = Path(bu.__file__).resolve().parents[1] / "csrc"
 DTYPES = [torch.float64, torch.float32]
 

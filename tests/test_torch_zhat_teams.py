@@ -40,6 +40,9 @@ from repro_torch.core import secular as tsec  # noqa: E402
 from repro_torch.core.tridiag import make_family  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 
+from _torch_threads import _one_torch_thread  # noqa: E402,F401
+
+
 TEAM = 8                  # csrc/secular_common.cuh
 DTYPES = {"float64": torch.float64, "float32": torch.float32}
 
