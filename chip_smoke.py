@@ -129,7 +129,34 @@ per source, in parallel), then:
      client, each served probe equal to a direct one bit for bit, its
      target below the MLP's lam_max so that each scale is
      max(min_scale, target / lam_max) strictly below 1, the first step's
-     update that scale times the ungoverned one, and the loss falling.
+     update that scale times the ungoverned one, and the loss falling;
+ 10. trains and serves qwen3-0.6b at full width (28 layers, d_model 1024,
+     GQA 16/8 heads of 128, d_ff 3072, vocab 151936) in bfloat16 through
+     the port's drivers, the kernels' launch counts zeroed at the phase's
+     start: (a) ``launch.train.main`` takes 20 adamw steps at batch 8 x
+     seq 256 with a curvature probe every 5 steps (m = 8 Lanczos steps of
+     the ``torch.func`` HVP on a 2-sequence sub-batch, the k = 1 edges
+     solve served through an ``EigensolverClient``), its target 50, below
+     the model's lam_max, so the governor damps; checks finite, falling
+     losses, every probe's lr_scale == max(min_scale, min(1, target /
+     lam_max)) and applied until the next probe, one below 1, a governor
+     fed direct solves of the same tridiagonals walking the same values
+     bit for bit, the edges bucket's requests == probes + 1 with 0 errors,
+     and the bisection tree and the Newton sweep launched; prints the step
+     time (CUDA events, median after the first), tokens/s, peak device
+     memory and each probe's wall and its solve's share; (b) under
+     ``torch.use_deterministic_algorithms`` trains 10 steps saving every
+     5, moves the step-10 checkpoint aside, resumes from step 5 and holds
+     the resumed run's losses and final state to the uninterrupted run's
+     bit for bit, and the step-10 checkpoint, restored, to the
+     uninterrupted run's final state bit for bit; (c) ``launch.serve.main``
+     prefills 4 x 128-token prompts and greedy-decodes 32 tokens, then the
+     same decode's logits are held step by step against a teacher-forced
+     ``forward`` of the prompt and the generated prefix within 16
+     bfloat16 eps of the step's largest |logit|, printing the prefill
+     time, decode tokens/s and the fraction of greedy ids that agree
+     with the forward's argmax; then traces one decode step and one
+     adamw step with torch.profiler (device busy share, top kernels).
 
 Every check raises on failure.  The last lines are a JSON record of the
 kernels, the card's name and power limit, and the result line
@@ -219,7 +246,7 @@ def _cuda_ms(torch, fn, reps=5):
     return statistics.median(times)
 
 
-def _profile(torch, label, fn):
+def _profile(torch, label, fn, tag="5 profile"):
     """One traced run: the device time of each kernel (torch.profiler,
     CUPTI) against the run's wall time.  Prints "not measured" when the
     tracer records no device time."""
@@ -239,11 +266,11 @@ def _profile(torch, label, fn):
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     if not busy:
-        print(f"[5 profile] {label}: device time not measured (the tracer "
+        print(f"[{tag}] {label}: device time not measured (the tracer "
               f"recorded none); wall {wall_ms:.1f} ms")
         return
     top = "; ".join(f"{k[:60]} x{c} {ms:.2f} ms" for ms, k, c in rows[:6])
-    print(f"[5 profile] {label}: wall {wall_ms:.1f} ms (traced), device "
+    print(f"[{tag}] {label}: wall {wall_ms:.1f} ms (traced), device "
           f"busy {busy:.1f} ms ({100 * busy / wall_ms:.1f}%); top: {top}")
 
 
@@ -1114,6 +1141,261 @@ def _phase9(torch, np, smi, Du, Eu, refs):
         if launches[name] == 0:
             raise AssertionError(f"phase 9: {name} never launched")
     print(f"[9 time] phase 9 took {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})")
+    return launches
+
+
+def _phase10(torch, np, smi):
+    """Phase 10: the model zoo's trainer and serving driver on the card at
+    the full width of qwen3-0.6b in bfloat16 (see the module docstring).
+    Raises on any failed check; returns the phase's launch counts by
+    kernel name."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore_tree
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.deflate_chain import deflate_chain_cuda
+    from repro_torch.kernels.fused_update import secular_postpass_cuda
+    from repro_torch.kernels.resident_merge import resident_merge_cuda
+    from repro_torch.kernels.secular_roots import secular_solve_cuda
+    from repro_torch.kernels.sturm_count import (sturm_bisect_tree_cuda,
+                                                 sturm_count_cuda,
+                                                 sturm_count_newton_cuda)
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.launch import serve as tserve
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as ttf
+    from repro_torch.optim import SpectralGovernor, adamw
+    from repro_torch.tree import tree_leaves
+
+    dev = torch.device("cuda", 0)
+    arch, B, S, steps, every, m, pb = "qwen3-0.6b", 8, 256, 20, 5, 8, 2
+    cfg = get_config(arch)
+    kernels = {"resident_merge": resident_merge_cuda,
+               "secular_roots": secular_solve_cuda,
+               "fused_update": secular_postpass_cuda,
+               "deflate_chain": deflate_chain_cuda,
+               "sturm_count": sturm_count_cuda,
+               "sturm_count_newton": sturm_count_newton_cuda,
+               "sturm_bisect_tree": sturm_bisect_tree_cuda}
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="repro-torch-phase10-")
+    common = ["--arch", arch, "--batch", str(B), "--seq", str(S),
+              "--log-every", "100"]
+    try:
+        # ---- (a) 20 governed adamw steps at full width -------------------
+        # The target lies below this model's lam_max over these steps (the
+        # probes read 142-160, and 303 at the initial parameters, on one
+        # H100), so the governor damps; the phase checks that it did.
+        target = 50.0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        rep = ttrain.main(common + [
+            "--steps", str(steps), "--spectral-every", str(every),
+            "--serve-monitor", "--probe-steps", str(m), "--probe-batch",
+            str(pb), "--target-sharpness", repr(target), "--ckpt-every",
+            "100000", "--ckpt-dir", os.path.join(work, "a")])
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        trained = {name: k.launches for name, k in kernels.items()}
+        losses, log = rep["losses"], rep["probe_log"]
+        if not (all(math.isfinite(x) for x in losses)
+                and losses[-1] < losses[0] and len(losses) == steps):
+            raise AssertionError(f"train: losses {losses}")
+        lo = rep["min_scale"]
+        if not log["steps"] or log["steps"] != list(range(every, steps,
+                                                          every)):
+            raise AssertionError(f"train: probes at {log['steps']}")
+        for step, lam, scale in zip(log["steps"], log["lam_max"],
+                                    log["lr_scale"]):
+            want = max(lo, min(1.0, target / lam))
+            applied = rep["lr_scales"][step + 1:step + 1 + every]
+            if not (scale == want and lo <= scale <= 1.0
+                    and all(x == scale for x in applied)):
+                raise AssertionError(
+                    f"train: probe at step {step}: lr_scale {scale!r}, "
+                    f"expected max(min_scale, min(1, {target!r} / "
+                    f"{lam!r})) = {want!r}; applied {applied}")
+        if min(rep["lr_scales"]) >= 1.0 or target >= log["lam_max"][0]:
+            raise AssertionError(f"train: the governor never damped "
+                                 f"(target {target}, lam_max "
+                                 f"{log['lam_max']})")
+        # The served probes against direct solves of the same Krylov
+        # tridiagonals: a governor fed by direct edges solves on the card
+        # walks the same lam_max (EMA) and lr_scale, bit for bit.
+        replay = SpectralGovernor(period=every, target_sharpness=target)
+        for (alpha, beta), lam, scale in zip(log["tridiags"],
+                                             log["lam_max"],
+                                             log["lr_scale"]):
+            got = replay.probe_tridiag(alpha.to(dev), beta.to(dev))
+            if replay.lam_max != lam or got != scale:
+                raise AssertionError(
+                    f"train: served probe lam_max {lam!r} / scale "
+                    f"{scale!r} != direct {replay.lam_max!r} / {got!r}")
+        bucket = rep["serve"]["buckets"][f"range/n{m}/k1/float64"]
+        errors = sum(b["errors"] for b in rep["serve"]["buckets"].values())
+        if bucket["requests"] != rep["probes"] + 1 or errors:
+            raise AssertionError(f"train: edges bucket {bucket}, errors "
+                                 f"{errors}, probes {rep['probes']}")
+        for name in ("sturm_bisect_tree", "sturm_count_newton"):
+            if trained[name] == 0:
+                raise AssertionError(f"train: {name} never launched")
+        step_ms = statistics.median(rep["step_event_ms"][1:])
+        print(f"[10 train] {arch} full width (28 layers, d_model 1024, "
+              f"vocab 151936, bfloat16), adamw, batch {B} x seq {S}, "
+              f"{steps} steps: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+              f"step {step_ms:.1f} ms (CUDA events, median of steps 2-"
+              f"{steps}), {B * S / step_ms * 1e3:.0f} tokens/s; peak device "
+              f"memory {peak / 2**30:.2f} GiB; {steps} steps with probes "
+              f"{train_s:.1f} s host wall ({smi})")
+        for step, lam, scale, wall, solve in zip(
+                log["steps"], log["lam_max"], log["lr_scale"],
+                log["wall_s"], log["solve_s"]):
+            print(f"[10 probe] step {step}: m={m} Lanczos on a {pb} x {S} "
+                  f"sub-batch + served edges solve {wall * 1e3:.1f} ms, the "
+                  f"solve {solve * 1e3:.1f} ms ({solve / wall:.1%}); lam_max "
+                  f"(EMA) {lam:.6g}, target {target:.6g}, lr_scale "
+                  f"{scale:.6g} == max(min_scale, min(1, target / lam_max)),"
+                  f" == the direct solve's bit for bit ({smi})")
+        print(f"[10 probe] edges bucket {bucket['requests']} requests "
+              f"(probes + the warm-up), 0 errors; launches in the run: "
+              f"{trained}")
+        del rep, log
+
+        # ---- (b) checkpoint: save, restore, resume ------------------------
+        # Bit for bit under torch.use_deterministic_algorithms (cuBLAS on
+        # one stream; the embedding's and the gold logit's backward are
+        # accumulating index_puts, which have a deterministic kernel).
+        env = "CUBLAS_WORKSPACE_CONFIG"
+        old_env = os.environ.get(env)
+        os.environ.setdefault(env, ":4096:8")
+        torch.use_deterministic_algorithms(True)
+        ck = os.path.join(work, "b")
+        half = 5
+        try:
+            t0 = time.perf_counter()
+            full = ttrain.main(common + ["--steps", str(2 * half),
+                                         "--ckpt-every", str(half),
+                                         "--ckpt-dir", ck])
+            full_s = time.perf_counter() - t0
+            kept = os.path.join(work, "uninterrupted")
+            os.makedirs(kept)
+            os.rename(os.path.join(ck, f"step_{2 * half:08d}"),
+                      os.path.join(kept, f"step_{2 * half:08d}"))
+            t0 = time.perf_counter()
+            resumed = ttrain.main(common + ["--steps", str(2 * half),
+                                            "--ckpt-every", "100000",
+                                            "--ckpt-dir", ck])
+            resumed_s = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if old_env is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = old_env
+        state = tree_leaves(full["state"])
+        if resumed["start_step"] != half or (resumed["losses"]
+                                             != full["losses"][half:]):
+            raise AssertionError(f"ckpt: resumed at {resumed['start_step']}"
+                                 f", losses {resumed['losses']} vs "
+                                 f"{full['losses'][half:]}")
+        if not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+                   zip(tree_leaves(resumed["state"]), state)):
+            raise AssertionError("ckpt: resumed state != uninterrupted")
+        del resumed
+        t0 = time.perf_counter()
+        restored, _ = restore_tree(kept, 2 * half, full["state"])
+        restore_s = time.perf_counter() - t0
+        if not all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+                   zip(tree_leaves(restored), state)):
+            raise AssertionError("ckpt: the restored step-10 state != the "
+                                 "trainer's")
+        size = sum(x.numel() * x.element_size() for x in state)
+        dtypes = sorted({str(x.dtype) for x in state})
+        print(f"[10 ckpt] adamw state of {arch} ({len(state)} leaves, "
+              f"{size / 2**30:.2f} GiB, {dtypes}): the step-{2 * half} "
+              f"checkpoint restores to the trainer's final state bit for "
+              f"bit; resumed at step {half}, the run's losses and final "
+              f"state == the uninterrupted run's bit for bit "
+              f"(torch.use_deterministic_algorithms); save "
+              f"{[round(x, 1) for x in full['ckpt_save_s']]} s, restore "
+              f"{restore_s:.1f} s host wall; trainer runs {full_s:.1f} s "
+              f"(10 steps, 2 saves) and {resumed_s:.1f} s (restore, 5 "
+              f"steps) ({smi})")
+        del full, restored, state
+        shutil.rmtree(work, ignore_errors=True)
+
+        # ---- (c) serve: prefill 4 x 128, greedy decode 32 ------------------
+        Bq, P, G = 4, 128, 32
+        gen = tserve.main(["--arch", arch, "--batch", str(Bq),
+                           "--prompt-len", str(P), "--gen", str(G)])
+        params = ttf.init_model(0, cfg, device=dev)
+        tokens, _ = tserve.prompts(cfg, Bq, P, 0, dev)
+        ids, step_logits, t_pre, t_dec = tserve.greedy_generate(
+            params, cfg, tokens, G)
+        # Teacher-forced: one forward over the prompt and the generated
+        # prefix; its logits at positions P-1 .. P+G-2 are the ones each
+        # decode step produced.  bfloat16 tolerance: 16 bfloat16 eps
+        # (2^-8) of the largest |logit| of the step.
+        with torch.no_grad():
+            full_logits, _ = ttf.forward(
+                params, cfg, torch.cat([tokens, ids[:, :-1].to(
+                    tokens.dtype)], dim=1))
+        ref = full_logits[:, P - 1:].float()
+        got = torch.stack(step_logits, dim=1).float()
+        rel = float(((got - ref).abs().amax(dim=(0, 2))
+                     / ref.abs().amax(dim=(0, 2))).max())
+        agree = float((torch.argmax(ref, dim=-1) == ids).float().mean())
+        same = bool(np.array_equal(ids.cpu().numpy(), gen))
+        tol = 16 * 2.0 ** -8
+        if not (torch.isfinite(got).all() and rel <= tol
+                and ids.shape == (Bq, G)):
+            raise AssertionError(f"serve: decode logits {rel:.3g} of the "
+                                 f"step's max |logit| from the teacher-"
+                                 f"forced forward (tolerance {tol})")
+        print(f"[10 serve] {arch} full width, bfloat16: prefill {Bq} x {P} "
+              f"tokens {t_pre * 1e3:.1f} ms, greedy decode {G - 1} steps "
+              f"{Bq * (G - 1) / t_dec:.1f} tokens/s (host wall ending in a "
+              f"sync, warm); each step's logits within {rel:.3g} of the "
+              f"step's max |logit| of the teacher-forced forward "
+              f"(tolerance {tol:.4f}); greedy ids agree with the forward's "
+              f"argmax at {agree:.1%} of positions; the driver's ids == "
+              f"this run's: {same} ({smi})")
+        del full_logits, ref, got, step_logits
+
+        # Where the time goes: one traced decode step and one traced adamw
+        # step at the shapes above.
+        with torch.no_grad():
+            _, caches = ttf.prefill(params, cfg, tokens, P + G)
+            _profile(torch, f"decode step, batch {Bq} at position {P}",
+                     lambda: ttf.decode_step(params, cfg, ids[:, :1], caches,
+                                             P), tag="10 profile")
+        del caches
+        opt = adamw(lr=3e-4)
+        state = [params, opt.init(params)]
+        step_fn = make_train_step(cfg, opt, remat=False)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticTokens(
+            cfg.vocab_size, S, seed=0).batch(0, 0, B).items()}
+
+        def train_step():
+            state[0], state[1], _ = step_fn(state[0], state[1], batch)
+        _profile(torch, f"adamw train step, batch {B} x seq {S}",
+                 train_step, tag="10 profile")
+        del params, state, batch
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"[10 counts] launches in phase 10: {launches}")
+    for name in ("sturm_bisect_tree", "sturm_count_newton"):
+        if launches[name] == 0:
+            raise AssertionError(f"phase 10: {name} never launched")
+    print(f"[10 time] phase 10 took {time.perf_counter() - t_phase:.1f} s "
           f"({smi})")
     return launches
 
@@ -2430,6 +2712,9 @@ def main() -> int:
     # ---- phase 9: tuning, SLQ, sharpness and the governor ----------------
     phase9_launches = _phase9(torch, np, smi, Du, Eu, refs)
 
+    # ---- phase 10: the trainer and the serving driver at full width -----
+    phase10_launches = _phase10(torch, np, smi)
+
     sources = {"secular_roots": ("src/repro_torch/csrc/secular_roots.cu",
                                  "src/repro/kernels/secular_roots.py:265"),
                "fused_update": ("src/repro_torch/csrc/fused_update.cu",
@@ -2666,9 +2951,10 @@ def main() -> int:
                 (512, "W=8 r=K=512 glued_wilkinson f64 (R = I)"),
                 (2048, "W=2 r=K=2048 glued lazy n=4096 f64"),
                 (4096, "W=1 r=K=4096 glued lazy n=4096 f64"))}})
-    for rec in out:   # phases 8 and 9's own counts, beside the main path's
+    for rec in out:   # phases 8-10's own counts, beside the main path's
         rec["serve_launches"] = int(serve_launches.get(rec["name"], 0))
         rec["phase9_launches"] = int(phase9_launches.get(rec["name"], 0))
+        rec["phase10_launches"] = int(phase10_launches.get(rec["name"], 0))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

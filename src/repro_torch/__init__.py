@@ -14,7 +14,14 @@ route-time consult (``repro_torch.core.plan.tune``); and the spectral
 estimates and optimizers (``repro_torch.spectral``: Lanczos, HVP and
 Gauss-Newton products, SLQ as ``kind="slq"``, extremal edges;
 ``repro_torch.optim``: sgd, adamw, adafactor and the spectral
-learning-rate governor).
+learning-rate governor); and the model zoo and its drivers
+(``repro_torch.configs``, ``repro_torch.models`` -- all ten architectures
+on the JAX package's parameter tree, ``params_from_numpy`` to carry its
+parameters across -- ``repro_torch.data``, ``repro_torch.checkpoint`` on
+its on-disk format, and ``repro_torch.launch``: the trainer with the
+served spectral governor, ``python -m repro_torch.launch.train``, and
+the LLM serving driver, ``python -m repro_torch.launch.serve``; both run
+on the card unless given ``--device cpu``).
 """
 
 from repro_torch.core import (eigvalsh_tridiagonal,

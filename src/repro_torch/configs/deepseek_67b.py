@@ -1,0 +1,23 @@
+"""deepseek-67b [dense]: 95L d_model=8192 64H (GQA kv=8) d_ff=22016
+vocab=102400 -- llama-arch.  [arXiv:2401.02954; hf]"""
+
+from repro_torch.models.config import ModelConfig
+
+
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-67b", family="dense",
+        num_layers=95, d_model=8192, num_heads=64, num_kv_heads=8,
+        d_ff=22016, vocab_size=102400,
+        attention="gqa", rope_theta=10000.0, tie_embeddings=False,
+    )
+
+
+def smoke_config() -> ModelConfig:
+    return ModelConfig(
+        name="deepseek-smoke", family="dense",
+        num_layers=3, d_model=64, num_heads=8, num_kv_heads=2,
+        d_ff=160, vocab_size=256,
+        attention="gqa", tie_embeddings=False,
+        param_dtype="float32", compute_dtype="float32",
+    )

@@ -49,13 +49,29 @@ def tree_stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
+def is_bfloat16(a: np.ndarray) -> bool:
+    """Whether a numpy array holds bfloat16: ``ml_dtypes``' bfloat16 (the
+    dtype of a JAX bfloat16 array), or the two-byte void dtype that
+    ``np.load`` gives such an array's file where ``ml_dtypes`` is not
+    installed."""
+    return a.dtype.kind == "V" and a.dtype.itemsize == 2
+
+
+def leaf_from_numpy(x, device) -> torch.Tensor:
+    """One array as a tensor on ``device``, keeping its dtype; bfloat16
+    bytes are reinterpreted (int16, then a bfloat16 view), bit for bit."""
+    a = np.array(x)
+    if is_bfloat16(a):
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
 def tree_from_numpy(tree, device=None):
     """A tree of arrays (numpy, or anything ``np.asarray`` takes, such as
     the JAX package's parameters and optimizer states) as a tree of
     tensors on ``device`` (None: the card, as every entry point), each
-    keeping its dtype (a step count stays int32)."""
+    keeping its dtype (a step count stays int32, bfloat16 stays
+    bfloat16)."""
     dev = resolve_device(device)
-
-    def leaf(x):
-        return torch.from_numpy(np.array(x)).to(dev)
-    return tree_map(leaf, tree)
+    return tree_map(lambda x: leaf_from_numpy(x, dev), tree)
