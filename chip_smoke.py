@@ -157,6 +157,31 @@ per source, in parallel), then:
      time, decode tokens/s and the fraction of greedy ids that agree
      with the forward's argmax; then traces one decode step and one
      adamw step with torch.profiler (device busy share, top kernels).
+ 11. drives the distributed conquer on the card, P shards sharing it
+     through ``make_solver_mesh(P, devices=["cuda:0"] * P)``, the kernels'
+     launch counts (every kernel's, the root-window entry's apart) zeroed
+     just before (b) and read just after (f): (b) ``eigvalsh_tridiagonal``
+     of uniform and glued Wilkinson at n = 16384 and 65536, f64, mesh = 1,
+     2 and 4, each sharded result equal to mesh = 1 bit for bit, with the
+     window launches counted against the levels' rule, and mesh = 1 held
+     at 64 eps ||T||_inf, after the counts are read, to phase 3's
+     reference (uniform n = 16384) or to stebz at 206 indices and numpy
+     Sturm counts at every index (the others: scipy's default driver
+     takes over a minute at n = 65536 and is off by more than 8 eps ||T||
+     at most indices, and a full stebz takes tens of ms an index); (c) a host-padded B = 8 batch of n
+     in 12000-16384 with boundary rows through ``make_plan(...).execute(
+     orig_n=)``, mesh = 4 == mesh = 1 bit for bit (eigenvalues, blo, bhi);
+     (d) ``fused=False`` at n = 16384, mesh = 4 == mesh = 1 bit for bit,
+     zhat and the row update launched; (e) ``compress_halo=True`` within
+     0.05 ||T||, off == mesh = 1; (f) 8 n = 16384 requests served on the
+     mesh = 2 route == the sync calls bit for bit, with 0 errors,
+     fallbacks and retries; (g) times every (b) solve (CUDA events, median
+     of 5) beside the transition all-gather's bytes and peak device
+     memory; and (a) holds the root-window entry of the root-solve kernel
+     to the full launch's columns bit for bit and to its plain version at
+     1e-13 (a zeroed and a sign-flipped tau fail that bar) at B = 1,
+     K = 16384 (four windows of 4096) and B = 8, K = 8192 (two), timing a
+     window beside the full launch and its bound.
 
 Every check raises on failure.  The last lines are a JSON record of the
 kernels, the card's name and power limit, and the result line
@@ -1398,6 +1423,367 @@ def _phase10(torch, np, smi):
     print(f"[10 time] phase 10 took {time.perf_counter() - t_phase:.1f} s "
           f"({smi})")
     return launches
+
+
+def _stebz_at(d, e, idx):
+    """scipy's bisection driver (stebz) at the eigenvalue indices ``idx``
+    (runs in a worker process).  Returns (the eigenvalues, the seconds
+    the worker took)."""
+    import numpy as np
+    import scipy.linalg as sla
+    t0 = time.perf_counter()
+    lam = np.array([sla.eigh_tridiagonal(
+        d, e, eigvals_only=True, select="i", select_range=(int(k), int(k)),
+        lapack_driver="stebz")[0] for k in idx])
+    return lam, time.perf_counter() - t0
+
+
+def _sturm_below(d, e, shifts):
+    """The number of eigenvalues of T = tridiag(e, d, e) at or below each
+    shift, by the LDL^T pivot recurrence in numpy (DSTEBZ's count: a
+    pivot within pivmin of zero becomes -pivmin and counts; runs in a
+    worker process).  A reference of its own, independent of the port's
+    Sturm kernels.  The glued Wilkinson matrices repeat one block, so a
+    pivot of exactly zero recurs in every block: counting it before the
+    floor, as ``q < 0``, miscounts by the number of blocks."""
+    import numpy as np
+    e2 = e * e
+    pivmin = np.finfo(np.float64).tiny * max(1.0, float(e2.max(initial=0.0)))
+    q = d[0] - shifts
+    q = np.where(np.abs(q) < pivmin, -pivmin, q)
+    count = (q <= 0).astype(np.int64)
+    for k in range(1, d.shape[0]):
+        q = (d[k] - shifts) - e2[k - 1] / q
+        q = np.where(np.abs(q) < pivmin, -pivmin, q)
+        count += q <= 0
+    return count
+
+
+def _secular_window_ops(kp, start, nroots, niter):
+    """Operations of a root window: each active root in [start, start +
+    nroots) sweeps its problem's kprime poles (``_secular_ops``'s count a
+    pair)."""
+    import numpy as np
+    kp = kp.astype("float64")
+    roots = np.clip(kp - start, 0, nroots)
+    return float((roots * kp).sum()) * (18 + 6 * niter)
+
+
+def _phase11(torch, np, smi, ref16):
+    """Phase 11: the distributed conquer on the card, P shards on the one
+    card through ``make_solver_mesh(P, devices=["cuda:0"] * P)`` (see the
+    module docstring).  ``ref16`` is phase 3's (reference, eps ||T||) of
+    the uniform n = 16384 problem.  Raises on any failed check; returns
+    (the phase's launch counts by kernel name, the window entry's record).
+    """
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    from repro_torch.core import (eigvalsh_tridiagonal, make_family,
+                                  make_plan)
+    from repro_torch.core import secular as sec
+    from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
+    from repro_torch.kernels.deflate_chain import deflate_chain_cuda
+    from repro_torch.kernels.fused_update import secular_postpass_cuda
+    from repro_torch.kernels.resident_merge import resident_merge_cuda
+    from repro_torch.kernels.secular_roots import (secular_solve_cuda,
+                                                   secular_solve_window_cuda)
+    from repro_torch.kernels.sterf import sterf_cuda
+    from repro_torch.kernels.sturm_count import (sturm_bisect_tree_cuda,
+                                                 sturm_count_cuda,
+                                                 sturm_count_newton_cuda)
+    from repro_torch.kernels.zhat import zhat_reconstruct_cuda
+    from repro_torch.launch.mesh import make_solver_mesh
+    from repro_torch.serve import EigensolverClient
+    from repro_torch.serve.engine import _host_pad
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    eps = float(np.finfo(np.float64).eps)
+    meshes = {P: make_solver_mesh(P, devices=["cuda:0"] * P)
+              for P in (2, 4)}
+    kernels = {"resident_merge": resident_merge_cuda,
+               "secular_roots": secular_solve_cuda,
+               "fused_update": secular_postpass_cuda,
+               "deflate_chain": deflate_chain_cuda,
+               "zhat": zhat_reconstruct_cuda,
+               "boundary_update": boundary_rows_update_cuda,
+               "sturm_count": sturm_count_cuda,
+               "sturm_count_newton": sturm_count_newton_cuda,
+               "sturm_bisect_tree": sturm_bisect_tree_cuda,
+               "sterf": sterf_cuda}
+
+    def same_bits(a, b):
+        view = {torch.float64: torch.int64, torch.float32: torch.int32}
+        if a.dtype in view:
+            a, b = a.view(view[a.dtype]), b.view(view[b.dtype])
+        return a.shape == b.shape and bool(torch.equal(a, b))
+
+    # ---- (b)'s references run in worker processes -----------------------
+    # The uniform n = 16384 problem is phase 3's (its reference is the
+    # full stebz-adjudicated one).  At n = 65536 scipy's default driver
+    # takes over a minute and disagrees with stebz by more than 8 eps
+    # ||T|| at most indices, and a full stebz takes tens of ms an index
+    # (printed below), so the other three problems are held to stebz at
+    # 206 indices (both ends and every 1/192 of the spectrum) and, at
+    # every index, to exact Sturm counts in numpy (``_sturm_below``,
+    # independent of the port) at 64 eps ||T||_inf.  Both run on the host
+    # while the card works, and are read after the launch counts.
+    problems = {(fam, n): make_family(fam, n, seed=0)
+                for fam in ("uniform", "glued_wilkinson")
+                for n in (16384, 65536)}
+    pool = ProcessPoolExecutor(max_workers=min(7, os.cpu_count() or 1),
+                               mp_context=mp.get_context("spawn"))
+    samples, sturm = {}, {}
+    try:
+        for key, (d, e) in problems.items():
+            if key == ("uniform", 16384):
+                continue
+            n = key[1]
+            idx = np.unique(np.concatenate([
+                np.arange(8), n - 8 + np.arange(8),
+                np.linspace(0, n - 1, 192).astype(np.int64)]))
+            samples[key] = (idx, [pool.submit(_stebz_at, d, e, part)
+                                  for part in np.array_split(idx, 6)])
+
+        torch.cuda.synchronize()
+        for k in kernels.values():
+            k.launches = 0
+        secular_solve_window_cuda.launches = 0
+
+        # ---- (b) uniform and glued Wilkinson, n = 16384 and 65536 -------
+        results, times, peaks = {}, {}, {}
+        for (fam, n), (d, e) in problems.items():
+            for P in (1, 2, 4):
+                mesh = 1 if P == 1 else meshes[P]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                lam = eigvalsh_tridiagonal(d, e, mesh=mesh)
+                torch.cuda.synchronize()
+                peaks[fam, n, P] = torch.cuda.max_memory_allocated(dev) - base
+                results[fam, n, P] = lam
+            for P in (2, 4):
+                if not same_bits(results[fam, n, P], results[fam, n, 1]):
+                    raise AssertionError(
+                        f"(b) {fam} n={n}: mesh={P} differs from mesh=1")
+        window_main = secular_solve_window_cuda.launches
+        print(f"[11 main] (b) the 12 solves (2 families x n in 16384, "
+              f"65536 x mesh 1, 2, 4) launched the root-window entry "
+              f"{window_main} times")
+        # Each cooperative level above the resident threshold (K > 2048)
+        # solves its roots in P windows, one a shard.  The log2(P)
+        # cooperative levels of an n-point solve merge to K = n 2^c / P,
+        # c = 1 .. log2(P): at P = 2 the top level, at P = 4 the top two
+        # (K = n / 2 and n), of both families.
+        want_windows = 2 * sum(P for n in (16384, 65536) for P in (2, 4)
+                               for c in range(1, P.bit_length())
+                               if n * 2 ** c // P > 2048)
+        if window_main != want_windows:
+            raise AssertionError(f"phase 11: {window_main} window launches, "
+                                 f"expected {want_windows}")
+        lam1 = {}
+        for (fam, n), (d, e) in problems.items():
+            lam1[fam, n] = results[fam, n, 1].cpu().numpy()
+            if (fam, n) == ("uniform", 16384):
+                continue
+            tol = 64.0 * eps * max(1.0, _tinf(d, e))
+            shifts = np.concatenate([lam1[fam, n] - tol, lam1[fam, n] + tol])
+            sturm[fam, n] = [pool.submit(_sturm_below, d, e, part)
+                             for part in np.array_split(shifts, n // 8192)]
+
+        # ---- (c) a padded B = 8 batch with boundary rows, n in 12000-16384
+        rng = np.random.default_rng(1111)
+        sizes = sorted(int(s) for s in rng.integers(12000, 16385, 8))
+        rows = [make_family("normal", n, seed=n) for n in sizes]
+        padded = [_host_pad(d[None], e[None], 16384) for d, e in rows]
+        Dp = np.concatenate([p[0] for p in padded])
+        Ep = np.concatenate([p[1] for p in padded])
+        out = {P: make_plan(16384, 8, return_boundary=True,
+                            mesh=1 if P == 1 else meshes[P]).execute(
+                                Dp, Ep, orig_n=np.asarray(sizes))
+               for P in (1, 4)}
+        for a, b, name in zip(out[1][:3], out[4][:3], ("lam", "blo", "bhi")):
+            if not same_bits(a, b):
+                raise AssertionError(f"(c) padded batch: {name} at mesh=4 "
+                                     f"differs from mesh=1")
+        print(f"[11 check] (c) B=8 padded batch, n {sizes[0]}-{sizes[-1]}, "
+              f"boundary rows, mesh=4: eigenvalues, blo and bhi == mesh=1 "
+              f"bit for bit")
+
+        # ---- (d) the two-pass conquer; (e) the compressed halo ----------
+        d, e = problems["uniform", 16384]
+        before = {k: kernels[k].launches for k in ("zhat", "boundary_update")}
+        two = {P: eigvalsh_tridiagonal(d, e, fused=False,
+                                       mesh=1 if P == 1 else meshes[P])
+               for P in (1, 4)}
+        if not same_bits(two[4], two[1]):
+            raise AssertionError("(d) fused=False: mesh=4 differs from "
+                                 "mesh=1")
+        two_launches = {k: kernels[k].launches - v
+                        for k, v in before.items()}
+        if min(two_launches.values()) == 0:
+            raise AssertionError(f"(d) fused=False launched {two_launches}")
+        lam16 = results["uniform", 16384, 1]
+        off = eigvalsh_tridiagonal(d, e, mesh=meshes[4], compress_halo=False)
+        lossy = eigvalsh_tridiagonal(d, e, mesh=meshes[4], compress_halo=True)
+        norm = float(np.abs(d).max() + 2.0 * np.abs(e).max())
+        lossy_err = float((lossy - lam16).abs().max())
+        if not same_bits(off, lam16) or not 0.0 < lossy_err <= 0.05 * norm:
+            raise AssertionError(f"(e) compress_halo: off equal "
+                                 f"{same_bits(off, lam16)}, on error "
+                                 f"{lossy_err:.3e} (bar {0.05 * norm:.3e})")
+        print(f"[11 check] (d) fused=False n=16384 mesh=4 == mesh=1 bit for "
+              f"bit, launches {two_launches}; (e) compress_halo=True mesh=4: "
+              f"max |error| {lossy_err:.3e} = {lossy_err / norm:.2e} ||T|| "
+              f"(bar 0.05); off == mesh=1 bit for bit")
+
+        # ---- (f) 8 served requests on the mesh=2 route ------------------
+        served_probs = [make_family("uniform", 16384, seed=100 + i)
+                        for i in range(8)]
+        with EigensolverClient(max_batch=8, max_wait_us=20000) as client:
+            futs = [client.solve_async(d_, e_, mesh=meshes[2])
+                    for d_, e_ in served_probs]
+            got = [f.result(timeout=600) for f in futs]
+            snap = client.metrics()["buckets"]
+        for (d_, e_), res in zip(served_probs, got):
+            if not same_bits(res.eigenvalues,
+                             eigvalsh_tridiagonal(d_, e_, mesh=meshes[2])):
+                raise AssertionError("(f) a served mesh=2 result differs "
+                                     "from the sync call")
+        bad = {k: sum(b[k] for b in snap.values())
+               for k in ("errors", "fallbacks", "retries")}
+        flushes = sum(b["flushes"] for b in snap.values())
+        if any(bad.values()):
+            raise AssertionError(f"(f) served traffic: {bad}")
+        print(f"[11 check] (f) 8 served n=16384 requests on the mesh=2 route "
+              f"in {flushes} flush(es): served == sync bit for bit; {bad}")
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        launches["secular_roots_window"] = secular_solve_window_cuda.launches
+        print(f"[11 counts] launches in phase 11 (b)-(f): {launches}")
+        for name in ("resident_merge", "secular_roots", "fused_update",
+                     "deflate_chain", "zhat", "boundary_update",
+                     "secular_roots_window"):
+            if launches[name] == 0:
+                raise AssertionError(f"phase 11: {name} never launched")
+
+        # ---- (b) held to the references, after the counts ---------------
+        for (fam, n), (d, e) in problems.items():
+            lam_h = lam1[fam, n]
+            scale = eps * max(1.0, _tinf(d, e))
+            if not (np.isfinite(lam_h).all() and lam_h.shape == (n,)):
+                raise AssertionError(f"(b) {fam} n={n}: bad output")
+            if (fam, n) == ("uniform", 16384):
+                ref, rscale = ref16
+                ratio = float(np.abs(lam_h - ref).max()) / rscale
+                how = "the full phase-3 reference"
+            else:
+                idx, futs = samples[fam, n]
+                got = [f.result() for f in futs]
+                ref = np.concatenate([g[0] for g in got])
+                per_index = sum(g[1] for g in got) / len(idx)
+                counts = np.concatenate([f.result() for f in sturm[fam, n]])
+                j = np.arange(n)
+                certified = (counts[:n] <= j) & (counts[n:] >= j + 1)
+                if not certified.all():
+                    raise AssertionError(
+                        f"(b) {fam} n={n}: {int((~certified).sum())} "
+                        f"eigenvalues not within 64 eps ||T||_inf by numpy "
+                        f"Sturm counts")
+                ratio = float(np.abs(lam_h[idx] - ref).max()) / scale
+                how = (f"stebz at {len(idx)} indices, {per_index * 1e3:.1f} "
+                       f"ms an index on one host core (a full stebz "
+                       f"{per_index * n:.0f} core-s); all {n} within 64 by "
+                       f"numpy Sturm counts")
+            if ratio > 64:
+                raise AssertionError(f"(b) {fam} n={n}: {ratio:.2f} eps "
+                                     f"||T||_inf from the reference")
+            print(f"[11 check] (b) {fam} n={n}: mesh 2 and 4 == mesh 1 bit "
+                  f"for bit; max error {ratio:.2f} eps ||T||_inf (bar 64; "
+                  f"{how})")
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+    # ---- (g) times, the transition all-gather, peak memory --------------
+    for (fam, n), (d, e) in problems.items():
+        for P in (1, 2, 4):
+            mesh = 1 if P == 1 else meshes[P]
+            times[fam, n, P] = _cuda_ms(
+                torch, lambda: eigvalsh_tridiagonal(d, e, mesh=mesh), reps=5)
+        gathered = {P: 1 * P * (n // P) * (1 + 2) * 8 for P in (2, 4)}
+        print(f"[11 time] {fam} n={n} f64: mesh=1 {times[fam, n, 1]:.2f} ms, "
+              f"mesh=2 {times[fam, n, 2]:.2f} ms, mesh=4 "
+              f"{times[fam, n, 4]:.2f} ms (CUDA events, median of 5; the "
+              f"shards share the one card); transition all-gather "
+              f"B*P*Np*(1+r)*8 = {gathered[2]} B (P=2), {gathered[4]} B "
+              f"(P=4); peak device memory mesh=1 "
+              f"{peaks[fam, n, 1] / 2**20:.1f} MiB, mesh=2 "
+              f"{peaks[fam, n, 2] / 2**20:.1f}, mesh=4 "
+              f"{peaks[fam, n, 4] / 2**20:.1f} ({smi})")
+
+    # ---- (a) the window entry against the full launch and its plain version
+    window = {}
+    for B, K, nwin in ((1, 16384, 4), (8, 8192, 2)):
+        kp = K - K // 8 + 3                   # deflated tail, odd kprime
+        g = np.random.default_rng(K + B)
+        dd = np.sort(g.standard_normal((B, K)), axis=1)
+        dd[:, kp:] += 10.0
+        zz = g.standard_normal((B, K))
+        zz[:, kp:] = 0.0
+        zz /= np.linalg.norm(zz, axis=1, keepdims=True)
+        dd_t = torch.tensor(dd, device=dev)
+        z2 = torch.tensor(zz * zz, device=dev)
+        rho = torch.full((B,), 0.7, dtype=torch.float64, device=dev)
+        kpr = torch.full((B,), kp, dtype=torch.int32, device=dev)
+        fo, ft = secular_solve_cuda(dd_t, z2, rho, kpr, niter=16)
+        Kw = K // nwin
+        errs = []
+        for w in range(nwin):
+            s0 = w * Kw
+            o, t = secular_solve_window_cuda(dd_t, z2, rho, kpr, s0, Kw,
+                                             niter=16)
+            if not (same_bits(o, fo[:, s0:s0 + Kw])
+                    and same_bits(t, ft[:, s0:s0 + Kw])):
+                raise AssertionError(f"(a) window [{s0}, {s0 + Kw}) of "
+                                     f"B={B} K={K} differs from the full "
+                                     f"launch's columns")
+            (po, pt), p_ms = _cuda_once(
+                torch, lambda: sec.secular_solve_window_batched(
+                    dd_t, z2, rho, kpr, s0, Kw, niter=16, chunk=256))
+            lam_k = sec.secular_eigenvalues(dd_t, o, t)
+            lam_p = sec.secular_eigenvalues(dd_t, po, pt)
+            err = float((lam_k - lam_p).abs().max())
+            # The check tells a right window from a wrong one: a zeroed
+            # and a sign-flipped tau both fail the bar that o, t pass.
+            wrong = [float((sec.secular_eigenvalues(dd_t, o, x)
+                            - lam_p).abs().max()) for x in (0 * t, -t)]
+            if err > 1e-13 or min(wrong) <= 1e-13:
+                raise AssertionError(f"(a) window [{s0}, {s0 + Kw}) of B={B}"
+                                     f" K={K}: max_abs_err {err:.3e} (bar "
+                                     f"1e-13); zeroed / flipped {wrong}")
+            errs.append(err)
+        s0 = Kw if nwin > 2 else 0
+        w_ms = _cuda_ms(torch, lambda: secular_solve_window_cuda(
+            dd_t, z2, rho, kpr, s0, Kw, niter=16), reps=5)
+        f_ms = _cuda_ms(torch, lambda: secular_solve_cuda(
+            dd_t, z2, rho, kpr, niter=16), reps=5)
+        ops_w = _secular_window_ops(kpr.cpu().numpy(), s0, Kw, 16)
+        # d and z2 read once, rho and kprime, origin and tau written once.
+        nbytes = 2 * 8 * B * K + 12 * B + (4 + 8) * B * Kw
+        bound, by = _bound_ms(ops_w, nbytes, "float64")
+        window[B, K] = dict(ms=w_ms, full_ms=f_ms, plain_ms=p_ms,
+                            max_abs_err=max(errs), bound_ms=bound,
+                            bound_by=by, start=s0, nroots=Kw, kprime=kp)
+        print(f"[11 window] B={B} K={K} kprime={kp}: {nwin} windows of {Kw} "
+              f"== the full launch's columns bit for bit; max_abs_err vs "
+              f"plain {max(errs):.3e} (bar 1e-13; a zeroed and a flipped "
+              f"tau fail it); window [{s0}, {s0 + Kw}) {w_ms:.3f} ms, full "
+              f"launch {f_ms:.3f} ms, plain window {p_ms:.1f} ms (one run), "
+              f"bound {bound:.4f} ms ({by}) ({smi})")
+    print(f"[11 time] phase 11 took {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})")
+    return launches, window
 
 
 def main() -> int:
@@ -2715,6 +3101,9 @@ def main() -> int:
     # ---- phase 10: the trainer and the serving driver at full width -----
     phase10_launches = _phase10(torch, np, smi)
 
+    # ---- phase 11: the distributed conquer, P shards on the card --------
+    phase11_launches, window11 = _phase11(torch, np, smi, refs["u16"])
+
     sources = {"secular_roots": ("src/repro_torch/csrc/secular_roots.cu",
                                  "src/repro/kernels/secular_roots.py:265"),
                "fused_update": ("src/repro_torch/csrc/fused_update.cu",
@@ -2955,6 +3344,21 @@ def main() -> int:
         rec["serve_launches"] = int(serve_launches.get(rec["name"], 0))
         rec["phase9_launches"] = int(phase9_launches.get(rec["name"], 0))
         rec["phase10_launches"] = int(phase10_launches.get(rec["name"], 0))
+        rec["phase11_launches"] = int(phase11_launches[rec["name"]])
+    w16, w8 = window11[1, 16384], window11[8, 8192]
+    roots_rec = next(r for r in out if r["name"] == "secular_roots")
+    roots_rec.update(   # row 2's root-window entry (the distributed conquer)
+        window_launches=int(phase11_launches["secular_roots_window"]),
+        window_shape=f"B=1 K=16384 kprime={w16['kprime']} f64, roots "
+                     f"[{w16['start']}, {w16['start'] + w16['nroots']})",
+        window_ms=w16["ms"], window_full_ms=w16["full_ms"],
+        window_plain_ms=w16["plain_ms"], window_bound_ms=w16["bound_ms"],
+        window_bound_by=w16["bound_by"],
+        window_max_abs_err=max(w16["max_abs_err"], w8["max_abs_err"]),
+        window_b8_shape=f"B=8 K=8192 kprime={w8['kprime']} f64, roots "
+                        f"[{w8['start']}, {w8['start'] + w8['nroots']})",
+        window_b8_ms=w8["ms"], window_b8_full_ms=w8["full_ms"],
+        window_b8_plain_ms=w8["plain_ms"], window_b8_bound_ms=w8["bound_ms"])
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

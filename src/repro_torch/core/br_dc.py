@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.core import merge as _merge
 from repro_torch.core.instrument import SolveCounter
+from repro_torch.dist import sharding as _dist
 
 # Device-solve instrumentation: one increment per executor launch (a batch
 # of B problems is ONE solve).
@@ -175,25 +176,149 @@ def _br_dc_padded_batch(d_pad, e_pad, track, *, leaf, chunk, niter, use_zhat,
 
     track_local = None if track is None else track % leaf
     lam, rows = _leaf_solve(d_adj, e_pad, leaf, track_local=track_local)
+    lam, rows, kprimes = _subtree_levels(
+        lam, rows, e_pad, track, leaf, L, root_at_top=not return_boundary,
+        niter=niter, chunk=chunk, use_zhat=use_zhat, tol_factor=tol_factor,
+        stream_threshold=stream_threshold, deflate_budget=deflate_budget,
+        resident_threshold=resident_threshold, fused=fused)
+    return lam[:, 0], rows[:, 0], kprimes
 
+
+def _subtree_levels(lam, rows, e_pad, track, leaf, levels, *, root_at_top,
+                    **merge_kw):
+    """The first ``levels`` merge levels above the leaves (lam (B, nb,
+    leaf), rows (B, nb, r, leaf)), each one ``merge_level_batched`` over
+    every node of every problem; the level that leaves one node runs in
+    root mode if ``root_at_top``.  Returns (lam, rows, kprimes)."""
     kprimes = []
-    for level in range(L):
+    for level in range(levels):
         nm = lam.shape[1] // 2
         M = lam.shape[2]
-        root = (nm == 1) and not return_boundary
         rho, sgn = _level_coupling(e_pad, level, leaf, nm)   # (B, nm)
         lam_pairs, z_inner, R = _level_pairs(lam, rows, track, M)
         res = _merge.merge_level_batched(
             lam_pairs, z_inner, R, rho, sgn,
-            niter=niter, chunk=chunk, use_zhat=use_zhat,
-            root_mode=root, tol_factor=tol_factor,
-            stream_threshold=stream_threshold,
-            deflate_budget=deflate_budget,
-            resident_threshold=resident_threshold, fused=fused)
+            root_mode=root_at_top and nm == 1, **merge_kw)
         lam, rows = res.lam, res.rows
         kprimes.append(res.kprime)
+    return lam, rows, kprimes
 
-    return lam[:, 0], rows[:, 0], kprimes
+
+def _br_dc_sharded_batch(d_locs, e_locs, tracks, *, leaf, chunk, niter,
+                         use_zhat, return_boundary, tol_factor,
+                         stream_threshold, deflate_budget,
+                         resident_threshold, fused, compress_halo=False):
+    """Distributed-conquer D&C body (port of
+    ``repro.core.br_dc._br_dc_sharded_batch``), driven from one process.
+
+    d_locs[p], e_locs[p]: (B, Np) -- shard p's contiguous slice of the
+    padded (B, N = shards * Np) problem, on shard p's device; tracks[p]:
+    the (B,) *global* tracked row index on that device, or None.  Returns
+    per-shard lists of the same (lam (B, N), rows (B, r, N)) as
+    :func:`_br_dc_padded_batch`, replicated on every shard's device, and
+    the (B, num_merges) kprimes of every level (shard 0's copies).
+
+    Phases (the paper's O(n) conquer state makes every transfer linear):
+
+      1. *Divide*: rank-one coupling pre-subtraction.  Couplings interior
+         to a shard are local; a shard-edge coupling lives in the left
+         neighbour's last ``e`` slot and arrives by the one-element halo
+         (``dist.sharding.halo_from_left``).  The adds are grouped as the
+         JAX package groups them (every interior ``k-1`` slot, the right
+         edge, every ``k`` slot, the left edge), each group writing
+         distinct positions, so ``d_adj`` equals its slice of the
+         single-device computation bit for bit.
+      2. *Independent subtrees*: leaves and ``log2(Np / leaf)`` merge
+         levels on each shard's device, never in root mode.
+      3. *Transition*: one all-gather of the O(n) state, each shard's
+         eigenvalues and r selected rows (the rows int8-compressed with
+         ``compress_halo``).
+      4. *Cooperative levels*: ``log2(shards)`` levels of
+         :func:`repro_torch.core.merge.merge_level_coop` on the replicated
+         state, each shard solving its window of the level's roots.
+
+    No host sync: nothing on the level path reads a tensor back.
+    """
+    shards = len(d_locs)
+    devices = [x.device for x in d_locs]
+    B, Np = d_locs[0].shape
+    if Np % leaf:
+        raise ValueError(
+            f"shard width {Np} must be a multiple of leaf={leaf} "
+            f"(route resolution guarantees 2^L >= shards)")
+    L_loc = int(math.log2(Np // leaf))
+    L_coop = int(math.log2(shards))
+    nb_loc = Np // leaf
+    merge_kw = dict(niter=niter, chunk=chunk, use_zhat=use_zhat,
+                    tol_factor=tol_factor, stream_threshold=stream_threshold,
+                    deflate_budget=deflate_budget,
+                    resident_threshold=resident_threshold, fused=fused)
+
+    # ---- 1. divide: coupling pre-subtraction with the shard-edge halo ---
+    edges = [e[:, -1].abs() for e in e_locs]      # right-edge couplings
+    from_left = _dist.halo_from_left(edges)       # zeros on shard 0
+    lam_locs, rows_locs, kp_locs = [], [], []
+    for p in range(shards):
+        d_loc, e_loc, track = d_locs[p], e_locs[p], tracks[p]
+        sub = torch.zeros_like(d_loc)
+        if nb_loc > 1:
+            k = leaf * torch.arange(1, nb_loc, device=devices[p])
+            rho_int = e_loc[:, k - 1].abs()
+            sub[:, k - 1] += rho_int
+        # e_loc[:, -1] is zero padding on the last shard, so its edge term
+        # vanishes there as the global boundary list ends at N - leaf.
+        sub[:, Np - 1] += edges[p]
+        if nb_loc > 1:
+            sub[:, k] += rho_int
+        sub[:, 0] += from_left[p]
+        d_adj = d_loc - sub
+
+        # ---- 2. leaves and the shard's own subtree ----------------------
+        # Shard origins are multiples of leaf (and of 2M at every subtree
+        # level), so leaf-local positions and the level-side parities of
+        # _level_pairs match global coordinates.
+        lam, rows = _leaf_solve(d_adj, e_loc, leaf, track_local=(
+            None if track is None else track % leaf))
+        lam, rows, kps = _subtree_levels(lam, rows, e_loc, track, leaf,
+                                         L_loc, root_at_top=False,
+                                         **merge_kw)
+        lam_locs.append(lam[:, 0])
+        rows_locs.append(rows[:, 0])
+        kp_locs.append(kps)
+    # Diagnostics keep the global (B, num_merges) layout: shard-local nodes
+    # are contiguous in the global node order.
+    kprimes = [_dist.gather_lanes([kps[level] for kps in kp_locs])[0]
+               for level in range(L_loc)]
+
+    # ---- 3. the O(n) state all-gather ------------------------------------
+    lam, rows = _dist.gather_tree_state(lam_locs, rows_locs,
+                                        compress=compress_halo)
+    # Shard-edge couplings of the cooperative levels, signed (sgn needs
+    # the raw e): one (B,) value a shard.
+    e_edges = _dist.gather_lanes([e[:, -1:] for e in e_locs])  # (B, shards)
+
+    # ---- 4. cooperative levels -------------------------------------------
+    for _ in range(L_coop):
+        nm = lam[0].shape[1] // 2
+        M = lam[0].shape[2]
+
+        def pairs(p):
+            q = (2 * torch.arange(nm, device=devices[p]) + 1) * (M // Np) - 1
+            beta = e_edges[p][:, q]                          # (B, nm)
+            one = torch.ones((), dtype=beta.dtype, device=beta.device)
+            return ((beta.abs(), torch.where(beta >= 0.0, one, -one))
+                    + _level_pairs(lam[p], rows[p], tracks[p], M))
+        level = _dist.per_device(devices, pairs)
+        rho, sgn, lam_pairs, z_inner, R = (
+            [x[i] for x in level] for i in range(5))
+        res = _merge.merge_level_coop(
+            lam_pairs, z_inner, R, rho, sgn,
+            root_mode=(nm == 1) and not return_boundary, **merge_kw)
+        lam = [x.lam for x in res]
+        rows = [x.rows for x in res]
+        kprimes.append(res[0].kprime)
+
+    return [x[:, 0] for x in lam], [x[:, 0] for x in rows], kprimes
 
 
 def _as_batch(d, e, dtype, device):
@@ -224,7 +349,8 @@ def eigvalsh_tridiagonal_batch(d, e, *, leaf: int | None = None,
                                deflate_budget: int | None = None,
                                resident_threshold: int | None = None,
                                fused: bool = True,
-                               dtype=None, device=None,
+                               dtype=None, device=None, mesh="auto",
+                               compress_halo: bool = False,
                                precision: str = "native",
                                refine_tol: float | None = None
                                ) -> BRBatchResult:
@@ -233,8 +359,9 @@ def eigvalsh_tridiagonal_batch(d, e, *, leaf: int | None = None,
     d: (B, n), e: (B, n-1), numpy arrays or tensors.  One plan execution,
     B * O(n) state; runs on ``device`` (default: the CUDA card; pass
     ``device="cpu"`` for the plain torch path).  Knobs as in
-    ``repro.core.br_dc.eigvalsh_tridiagonal_batch`` (``precision`` and
-    ``refine_tol`` as in :func:`eigvalsh_tridiagonal_br`).  Returns
+    ``repro.core.br_dc.eigvalsh_tridiagonal_batch`` (``mesh``,
+    ``compress_halo``, ``precision`` and ``refine_tol`` as in
+    :func:`eigvalsh_tridiagonal_br`).  Returns
     BRBatchResult with eigenvalues (B, n) ascending per problem.
     """
     from repro_torch.core import plan as _plan  # deferred: plan imports br_dc
@@ -254,7 +381,8 @@ def eigvalsh_tridiagonal_batch(d, e, *, leaf: int | None = None,
                         stream_threshold=stream_threshold,
                         deflate_budget=deflate_budget,
                         resident_threshold=resident_threshold, fused=fused,
-                        dtype=d.dtype, device=dev, precision=precision,
+                        dtype=d.dtype, device=dev, mesh=mesh,
+                        compress_halo=compress_halo, precision=precision,
                         refine_tol=refine_tol)
     return p.execute(d, e)
 
@@ -269,7 +397,8 @@ def eigvalsh_tridiagonal_br(d, e, *, leaf: int | None = None,
                             deflate_budget: int | None = None,
                             resident_threshold: int | None = None,
                             fused: bool = True,
-                            dtype=None, device=None,
+                            dtype=None, device=None, mesh="auto",
+                            compress_halo: bool = False,
                             precision: str = "native",
                             refine_tol: float | None = None) -> BRResult:
     """All eigenvalues of the symmetric tridiagonal (d, e) via boundary-row
@@ -286,6 +415,17 @@ def eigvalsh_tridiagonal_br(d, e, *, leaf: int | None = None,
     A problem with an eigenvalue the refinement cannot certify comes back
     all NaN here; ``eigvalsh_tridiagonal`` re-solves such problems
     natively.
+
+    ``mesh`` routes the distributed conquer: "auto" (the default) shards
+    problems whose padded N is at least ``plan.DIST_AUTO_MIN_N`` over the
+    largest power-of-two count of visible devices of ``device``'s type
+    (one card, or the CPU: no sharding); an int P demands P such devices;
+    a ``launch.mesh.SolverMesh`` names its shards' devices, and may name
+    one device several times (``make_solver_mesh(4, devices=["cuda:0"] *
+    4)``); None or 1 is the single-device path.  ``compress_halo``
+    int8-compresses the boundary rows of the sharded path's one
+    all-gather (lossy; without it the sharded path equals the
+    single-device one bit for bit).  Results come back on ``device``.
     """
     from repro_torch.core import plan as _plan  # deferred: plan imports br_dc
     dev = _plan.resolve_device(device)
@@ -307,7 +447,8 @@ def eigvalsh_tridiagonal_br(d, e, *, leaf: int | None = None,
                         stream_threshold=stream_threshold,
                         deflate_budget=deflate_budget,
                         resident_threshold=resident_threshold, fused=fused,
-                        dtype=d.dtype, device=dev, precision=precision,
+                        dtype=d.dtype, device=dev, mesh=mesh,
+                        compress_halo=compress_halo, precision=precision,
                         refine_tol=refine_tol)
     res = p.execute(d, e)
     blo = None if res.blo is None else res.blo[0]

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import secular as _sec
 from repro_torch.core import tune as _tune
+from repro_torch.dist import sharding as _dist
 from repro_torch.kernels import ops as _ops
 
 
@@ -411,9 +412,19 @@ def merge_level(lam_pairs, z_inner, R, rho, sgn, *,
     # ---- secular root solve (compact delta representation, batched) ---
     origin, tau = _ops.secular_solve_batched(
         d, z * z, rho_eff, kprime, niter=niter, chunk=chunk, dense=dense)
-    lam = torch.gather(d, 1, origin.long()) + tau
+    return _merge_tail(d, z, Rp, kprime, rho_eff, origin, tau,
+                       root_mode=root_mode, two_pass=two_pass,
+                       use_zhat=use_zhat, chunk=chunk, dense=dense,
+                       dtype=dtype)
 
-    # ---- selected-row propagation (skipped at the root) ---------------
+
+def _merge_tail(d, z, Rp, kprime, rho_eff, origin, tau, *, root_mode,
+                two_pass, use_zhat, chunk, dense, dtype) -> MergeResult:
+    """Everything after the secular solve, for W lanes: the eigenvalues
+    from the delta representation, the selected-row propagation (skipped
+    at the root; the two-pass conquer or the fused post-pass) and the
+    final sort."""
+    lam = torch.gather(d, 1, origin.long()) + tau
     if root_mode:
         lam, _ = _sort_lanes(lam, None)
         return MergeResult(lam.to(dtype), torch.zeros_like(Rp), kprime,
@@ -431,6 +442,110 @@ def merge_level(lam_pairs, z_inner, R, rho, sgn, *,
             chunk=chunk, dense=dense)
     lam, rows = _sort_lanes(lam, rows)
     return MergeResult(lam.to(dtype), rows, kprime, rho_eff)
+
+
+def merge_level_coop(lam_pairs, z_inner, R, rho, sgn, *,
+                     niter: int = _sec.DEFAULT_NITER, chunk: int = 256,
+                     use_zhat: bool = True, root_mode: bool = False,
+                     tol_factor: float = 8.0,
+                     stream_threshold: int | None = None,
+                     deflate_budget: int = DEFAULT_DEFLATE_BUDGET,
+                     resident_threshold: int | None = None,
+                     fused: bool = True) -> list[MergeResult]:
+    """One *cooperative* tree level of the distributed conquer (port of
+    ``repro.core.merge.merge_level_coop``).
+
+    Every argument is a per-shard list of the replicated level state (the
+    shape of :func:`merge_level_batched`'s: ``lam_pairs`` (B, nm, 2, M)
+    ...), shard p's on the mesh's device p; shards that share a device
+    share its tensors (``dist.sharding.per_device``), and the replicated
+    work runs once per distinct device.  Returns the per-shard list of
+    (B, nm, ...) results, replicated the same way.  Work splits three
+    ways:
+
+      * merge head (assembly, deflation chain, compaction): replicated --
+        it keeps every device's pole state bit-identical to the
+        single-device level's;
+      * secular root solve, the level's O(K^2) cost: sharded.  Shard p
+        solves root window ``[w * Kw, (w+1) * Kw)`` of merge ``m``, with
+        ``m = p // G``, ``w = p % G``, ``G = shards / nm`` windows a merge
+        and ``Kw = K / G`` (N / shards roots a shard at every cooperative
+        level): on the card one launch of the root-window entry of
+        ``csrc/secular_roots.cu``.  The (origin, tau) windows are then
+        gathered in shard order, which is global root order;
+      * post-pass (fused, or the two-pass zhat and row update) and final
+        sort: replicated, the single-device level's own code
+        (:func:`_merge_tail`).
+
+    A root's arithmetic depends only on its index and the replicated pole
+    state, so the level equals :func:`merge_level_batched` bit for bit.
+    Levels small enough for the resident single-launch merge (on the
+    card K <= 2048), and levels whose roots do not split evenly, run
+    :func:`merge_level_batched` replicated instead, as in the JAX package.
+    """
+    shards = len(lam_pairs)
+    devices = [x.device for x in lam_pairs]
+    B, nm, _, M = lam_pairs[0].shape
+    K = 2 * M
+    r = R[0].shape[2]
+    if stream_threshold is None:
+        stream_threshold = default_stream_threshold(devices[0])
+    if resident_threshold is None:
+        resident_threshold = default_resident_threshold(devices[0])
+    if shards % nm:
+        raise ValueError(
+            f"cooperative level expects nm | shards; got nm={nm}, "
+            f"shards={shards}")
+    G = shards // nm                     # root windows per merge
+    two_pass = not fused or r > _ops.FUSED_MAX_ROWS
+    kw = dict(niter=niter, chunk=chunk, use_zhat=use_zhat,
+              root_mode=root_mode, tol_factor=tol_factor,
+              stream_threshold=stream_threshold,
+              deflate_budget=deflate_budget,
+              resident_threshold=resident_threshold, fused=fused)
+    if (not two_pass and not root_mode and K <= resident_threshold) \
+            or G <= 1 or K % G:
+        return _dist.per_device(devices, lambda p: merge_level_batched(
+            lam_pairs[p], z_inner[p], R[p], rho[p], sgn[p], **kw))
+    Kw = K // G
+    dense = not two_pass and K <= stream_threshold
+    dtype = lam_pairs[0].dtype
+
+    # ---- merge head, replicated over the flattened (B * nm) lanes -------
+    heads = _dist.per_device(devices, lambda p: _merge_head(
+        lam_pairs[p].reshape(B * nm, 2, M), z_inner[p].reshape(B * nm, 2, M),
+        R[p].reshape(B * nm, r, K), rho[p].reshape(B * nm),
+        sgn[p].reshape(B * nm), tol_factor=tol_factor,
+        deflate_budget=deflate_budget))
+
+    # ---- sharded secular solve: each shard's (merge, window) pair --------
+    windows = []
+    for p in range(shards):
+        d, z, _, kprime, rho_eff = heads[p]
+        m, w = divmod(p, G)
+        z_m = z.reshape(B, nm, K)[:, m]
+        windows.append(_ops.secular_solve_window_batched(
+            d.reshape(B, nm, K)[:, m], z_m * z_m, rho_eff.reshape(B, nm)[:, m],
+            kprime.reshape(B, nm)[:, m], w * Kw, Kw, niter=niter,
+            chunk=chunk, dense=dense))
+
+    # ---- window all-gather (shard order is global root order), then the
+    # ---- replicated post-pass and sort --------------------------------
+    def tail(p):
+        d, z, Rp, kprime, rho_eff = heads[p]
+        origin, tau = (
+            torch.stack([x[i].to(devices[p]) for x in windows])
+            .reshape(nm, G, B, Kw).permute(2, 0, 1, 3).reshape(B * nm, K)
+            for i in (0, 1))
+        res = _merge_tail(d, z, Rp, kprime, rho_eff, origin, tau,
+                          root_mode=root_mode, two_pass=two_pass,
+                          use_zhat=use_zhat, chunk=chunk, dense=dense,
+                          dtype=dtype)
+        return MergeResult(res.lam.reshape(B, nm, K),
+                           res.rows.reshape(B, nm, r, K),
+                           res.kprime.reshape(B, nm),
+                           res.rho_eff.reshape(B, nm))
+    return _dist.per_device(devices, tail)
 
 
 def merge_level_batched(lam_pairs, z_inner, R, rho, sgn, **kw):

@@ -18,7 +18,14 @@ the same way.  :func:`prewarm` builds the plans (and, on the card, the
 kernels) of an expected workload before traffic arrives; :func:`tune`
 sweeps the knobs on the device and persists the winners to the tuning
 cache (``repro_torch.core.tune``), which the route resolvers consult for
-every knob that arrives as ``None``.  Sharding comes in a later slice.
+every knob that arrives as ``None``.
+
+Distributed conquer: a route's ``shards`` (with the mesh's devices and
+``compress_halo``) is part of its key, so same-mesh traffic shares one
+plan and a different shard count is a different plan
+(``plan_cache_stats()["mesh_buckets"]``).  A sharded plan runs
+``br_dc._br_dc_sharded_batch`` over the shards of a ``SolverMesh``,
+driven from this process as the JAX package's ``shard_map`` is.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ from repro_torch.core import secular as _sec
 from repro_torch.core import tune as _tune
 from repro_torch.core.instrument import SolveCounter
 from repro_torch.core.tune import resolve_device  # noqa: F401 (re-export)
+from repro_torch.dist.sharding import per_device
+from repro_torch.launch.mesh import SolverMesh, visible_devices
 from repro_torch.runtime import faults as _faults
 
 # Built-in leaf block size; ``leaf=None`` resolves to the tuning cache's
@@ -68,6 +77,14 @@ class PlanKey(NamedTuple):
     resident_threshold: int
     fused: bool
     device: str
+    # Distributed conquer: contiguous problem shards on the solver mesh (1:
+    # the single-device path), whether the subtree->cooperative all-gather
+    # int8-compresses the boundary rows (normalized off at one shard), and
+    # the mesh's devices (shard p on mesh_devices[p]; () at one shard).
+    # Results come back on ``device``.
+    shards: int = 1
+    compress_halo: bool = False
+    mesh_devices: tuple = ()
     # Mixed-precision pipeline: "mixed" runs the whole tree in float32
     # and then Sturm-certifies / polishes the eigenvalues against the
     # original float64 (d, e) to refine_tol * eps_f64 * ||T||; `dtype`
@@ -130,9 +147,66 @@ def _torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP Queue 1 {item})")
+# Auto-routing floor: padded problems at least this large take the sharded
+# path when several devices are visible (the JAX package's crossover).
+DIST_AUTO_MIN_N = 16384
+
+
+def _resolve_shards(mesh, padded_n: int, leaf: int, dev: torch.device):
+    """Resolve the ``mesh`` routing knob to (shards, mesh devices).
+
+    ``mesh`` may be None / 1 (single device), "auto" (shard problems of
+    padded N >= DIST_AUTO_MIN_N over the largest power-of-two count of
+    visible devices of ``dev``'s type, which is 1 on one card and on the
+    CPU), an int shard count (that many visible devices of ``dev``'s type),
+    or a ``SolverMesh`` (its own devices, which may repeat).  Explicit
+    requests validate hard -- a clear error beats a silent single-device
+    fallback; "auto" degrades to 1 instead.
+    """
+    max_shards = padded_n // leaf        # one leaf per shard at minimum
+    if mesh is None or (isinstance(mesh, int) and mesh == 1):
+        return 1, ()
+    if isinstance(mesh, str):
+        if mesh != "auto":
+            raise ValueError(f"mesh must be 'auto', an int shard count, "
+                             f"or a SolverMesh; got {mesh!r}")
+        if padded_n < DIST_AUTO_MIN_N:
+            return 1, ()
+        avail = visible_devices(dev.type)
+        shards = 1 << (len(avail).bit_length() - 1)   # largest pow2 <= count
+        while shards > max_shards:
+            shards //= 2
+        return (shards, tuple(avail[:shards])) if shards > 1 else (1, ())
+    if isinstance(mesh, SolverMesh):
+        shards, devices = mesh.shards, mesh.devices
+    else:
+        shards, devices = int(mesh), None
+    if shards < 1:
+        raise ValueError(f"mesh shard count must be >= 1, got {shards}")
+    if shards == 1:
+        return 1, ()
+    if shards & (shards - 1):
+        raise ValueError(
+            f"mesh shard count must be a power of two (the D&C tree pairs "
+            f"nodes), got {shards}")
+    if devices is None:
+        avail = visible_devices(dev.type)
+        if shards > len(avail):
+            raise ValueError(
+                f"mesh={shards} but only {len(avail)} {dev.type} device(s) "
+                f"are visible; to run several shards on one device pass "
+                f"mesh=make_solver_mesh({shards}, devices=[{str(dev)!r}] * "
+                f"{shards})")
+        devices = tuple(avail[:shards])
+    elif {torch.device(x).type for x in devices} != {dev.type}:
+        raise ValueError(f"the mesh's devices {devices} are not all of the "
+                         f"solve's device type {dev.type!r}")
+    if shards > max_shards:
+        raise ValueError(
+            f"mesh={shards} needs at least {shards} leaves but padded "
+            f"n={padded_n} with leaf={leaf} has {max_shards}; use fewer "
+            f"shards or a smaller leaf")
+    return shards, tuple(devices)
 
 
 def resolve_solve_route(n: int, *, leaf: int | None = None,
@@ -156,8 +230,10 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
     resolves to the tuning cache's winner for the route's coordinate on
     the device's type first and to that type's default second; explicit
     knobs always win, so a tuned request and an explicit request with the
-    same values resolve to the same key.  Sharding knobs raise
-    NotImplementedError naming the ROADMAP item that brings them.
+    same values resolve to the same key.  ``mesh`` resolves to the route's
+    shard count and devices (:func:`_resolve_shards`); ``compress_halo``
+    is normalized off at one shard, so it never splits a single-device
+    bucket.
     """
     if n < 1:
         raise ValueError(f"n must be >= 1, got {n}")
@@ -189,9 +265,6 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
             raise ValueError(
                 f"refine_tol must be positive (eps * ||T|| units), "
                 f"got {refine_tol}")
-    if mesh not in ("auto", None, 1) or compress_halo:
-        raise _not_ported("sharded solves (mesh, compress_halo)",
-                          "item 4, dist/")
     dev = resolve_device(device)
     dtype_name = _dtype_name(torch.float64 if dtype is None else dtype)
     if niter is None:
@@ -203,11 +276,12 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
         consulted = True
         leaf, used_tuned = _tuned_leaf(n, dtype_name, precision, dev)
     N, _ = _br._tree_shape(n, leaf)
+    shards, mesh_devices = _resolve_shards(mesh, N, leaf, dev)
     if (stream_threshold is None or deflate_budget is None
             or resident_threshold is None):
         consulted = True
         tuned = _tune.lookup("solve", n=N, dtype=dtype_name,
-                             precision=precision, device=dev)
+                             precision=precision, shards=shards, device=dev)
         if stream_threshold is None:
             used_tuned |= "stream_threshold" in tuned
             stream_threshold = tuned.get(
@@ -229,7 +303,9 @@ def resolve_solve_route(n: int, *, leaf: int | None = None,
                    stream_threshold=int(stream_threshold),
                    deflate_budget=int(deflate_budget),
                    resident_threshold=int(resident_threshold), fused=fused,
-                   device=str(dev), precision=precision,
+                   device=str(dev), shards=shards,
+                   compress_halo=bool(compress_halo) and shards > 1,
+                   mesh_devices=mesh_devices, precision=precision,
                    refine_tol=refine_tol, certify=bool(certify))
 
 
@@ -255,6 +331,12 @@ class SolvePlan:
     @property
     def device(self) -> torch.device:
         return torch.device(self.key.device)
+
+    @property
+    def devices(self) -> int:
+        """Shard count of the solver mesh this plan runs on (1: the
+        single-device path), as the JAX package's ``SolvePlan.devices``."""
+        return self.key.shards
 
     @property
     def state_bytes(self) -> int:
@@ -323,13 +405,23 @@ class SolvePlan:
         # input staging and before the tree runs.
         _faults.inject("plan.launch")
 
-        lam, rows, kprimes = _br._br_dc_padded_batch(
-            d_run, e_run, track, leaf=key.leaf, chunk=key.chunk,
-            niter=key.niter, use_zhat=key.use_zhat,
-            return_boundary=key.return_boundary, tol_factor=key.tol_factor,
-            stream_threshold=key.stream_threshold,
+        tree_kw = dict(
+            leaf=key.leaf, chunk=key.chunk, niter=key.niter,
+            use_zhat=key.use_zhat, return_boundary=key.return_boundary,
+            tol_factor=key.tol_factor, stream_threshold=key.stream_threshold,
             deflate_budget=key.deflate_budget,
             resident_threshold=key.resident_threshold, fused=key.fused)
+        if key.shards > 1:
+            # Chaos-harness hook: corrupts one staged off-diagonal entry
+            # (default: the last, a shard-boundary coupling) -- the "halo
+            # delivered a damaged value" scenario.
+            e_run = _faults.corrupt_entry("dist.halo", e_run)
+            lam, rows, kprimes = _executor_sharded(
+                d_run, e_run, track, key.mesh_devices,
+                compress_halo=key.compress_halo, **tree_kw)
+        else:
+            lam, rows, kprimes = _br._br_dc_padded_batch(d_run, e_run, track,
+                                                         **tree_kw)
         _br.SOLVE_COUNTER.increment()
         # Chaos-harness hook: NaN-poisons configured eigenvalue rows before
         # the mixed stage (a poisoned mixed solve exercises recovery by
@@ -387,6 +479,28 @@ class SolvePlan:
             blo = bhi = None
         return _br.BRBatchResult(lam, blo, bhi,
                                  tuple(k[:B] for k in kprimes))
+
+
+def _executor_sharded(d_run, e_run, track, mesh_devices, *, compress_halo,
+                      **kw):
+    """The distributed conquer of a (B, N) batch over the shards on
+    ``mesh_devices`` (shard p on ``mesh_devices[p]``): shard p's
+    contiguous (B, N / shards) slice of the problem axis goes to its
+    device, the shards run ``br_dc._br_dc_sharded_batch``, and shard 0's
+    replicated result comes back to the batch's device.  Returns (lam
+    (B, N), rows (B, r, N), kprimes)."""
+    home = d_run.device
+    devices = [torch.device(x) for x in mesh_devices]
+    Np = d_run.shape[1] // len(devices)
+    d_locs, e_locs = (
+        [x[:, p * Np:(p + 1) * Np].to(dev).contiguous()
+         for p, dev in enumerate(devices)] for x in (d_run, e_run))
+    tracks = per_device(devices, lambda p: None if track is None
+                        else track.to(devices[p]))
+    lam, rows, kprimes = _br._br_dc_sharded_batch(
+        d_locs, e_locs, tracks, compress_halo=compress_halo, **kw)
+    return (lam[0].to(home), rows[0].to(home),
+            [k.to(home) for k in kprimes])
 
 
 class RangePlanKey(NamedTuple):
@@ -522,7 +636,8 @@ def plan_for_route(route: PlanKey, batch: int = 1) -> SolvePlan:
     bucket = batch_bucket(batch)
     tuned_chunk = _tune.lookup(
         "solve", n=route.padded_n, bucket=bucket, dtype=route.dtype,
-        precision=route.precision, device=route.device).get("chunk")
+        precision=route.precision, shards=route.shards,
+        device=route.device).get("chunk")
     chunk = (max(8, min(route.chunk, int(tuned_chunk))) if tuned_chunk
              else route.chunk)
     key = route._replace(
@@ -608,14 +723,18 @@ def range_plan_for_route(route: RangePlanKey,
 def plan_cache_stats() -> dict:
     """Plan-cache observability: size, hits, misses, executor builds and
     the summed persistent-state byte model of the cached plans, for the
-    full-spectrum and the range caches, plus the certify/refine executor
+    full-spectrum and the range caches, the cached plans by shard count
+    (``mesh_buckets``), plus the certify/refine executor
     builds, the tuning provenance (routes resolved on tuned and on
     default knobs, and the cache file's identity) and the robustness
     counters."""
     provenance = _tuning_provenance()
     with _PLAN_LOCK:
+        mesh_buckets: dict[int, int] = {}
+        for k in _PLAN_CACHE:
+            mesh_buckets[k.shards] = mesh_buckets.get(k.shards, 0) + 1
         return {"size": len(_PLAN_CACHE), "hits": _STATS["hits"],
-                "misses": _STATS["misses"],
+                "misses": _STATS["misses"], "mesh_buckets": mesh_buckets,
                 "executor_traces": EXECUTOR_TRACES.count,
                 "state_bytes": sum(p.state_bytes
                                    for p in _PLAN_CACHE.values()),

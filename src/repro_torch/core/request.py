@@ -52,6 +52,12 @@ class SolveRequest:
     edges; dtype for any); ``device`` is where it runs (None: the CUDA
     card).
 
+    Distributed conquer rides the same knobs: "br" requests accept
+    ``mesh`` (default "auto", see ``br_dc.eigvalsh_tridiagonal_br``) and
+    ``compress_halo``.  The shard count and the mesh's devices land in the
+    route key, so the serving scheduler coalesces same-mesh traffic and
+    never mixes mesh shapes in a flush.
+
     ``certify=True`` asks for a Sturm-certified result: one extra batched
     count sweep (``bisect.certify_spectrum``) verifies every returned
     eigenvalue against the original (d, e), and any miss -- or non-finite
@@ -194,7 +200,7 @@ def _cat_rows(a):
 
 def route_request(req: SolveRequest) -> RoutedRequest:
     """Resolve a request to its (batch-unresolved) plan key; raises on
-    malformed requests and on knobs of later slices.
+    malformed requests.
     Touches no plan cache; the only device work is the two Sturm counts
     a ``select="v"`` window needs."""
     from repro_torch.core import plan as _plan
@@ -318,7 +324,9 @@ def _native_knobs(req: SolveRequest) -> dict:
     (mesh, compress_halo)."""
     drop = ("precision", "refine_tol", "mesh", "compress_halo",
             "return_boundary")
-    return {k: v for k, v in req.knobs.items() if k not in drop}
+    kw = {k: v for k, v in req.knobs.items() if k not in drop}
+    kw["mesh"] = None   # the classic single-device path, whatever "auto" says
+    return kw
 
 
 def _bisect_lanes(routed: RoutedRequest, lam, mask) -> None:

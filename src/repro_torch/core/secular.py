@@ -263,6 +263,48 @@ def secular_solve_batched(d, z2, rho, kprime, *, niter: int = DEFAULT_NITER,
             torch.cat(taus, dim=1)[:, :K].contiguous())
 
 
+def secular_solve_window_batched(d, z2, rho, kprime, start: int,
+                                 nroots: int, *, niter: int = DEFAULT_NITER,
+                                 chunk: int = 128, dense: bool = False):
+    """Roots ``[start, start + nroots)`` of B problems -- the same window of
+    each (the cooperative level's layout): d, z2 (B, K); rho, kprime
+    (B,).  The root-sharding primitive of the distributed conquer: each
+    shard of a cooperative merge solves its own window
+    (``merge.merge_level_coop``).  A root's arithmetic depends only on its
+    index and the full pole state, so a window equals the same columns of
+    :func:`secular_solve_batched` bit for bit, however either call chunks
+    the root axis.  The plain version of the window entry of
+    ``csrc/secular_roots.cu``.  Returns (origin (B, nroots) int32, tau
+    (B, nroots))."""
+    start, nroots = int(start), int(nroots)
+    if dense or nroots <= chunk:
+        jc = torch.arange(start, start + nroots, device=d.device)
+        return _solve_chunk(jc, d, z2, rho, kprime, niter)
+    C = min(chunk, nroots)
+    origins, taus = [], []
+    for lo in range(start, start + _pad_len(nroots, C), C):
+        jc = torch.arange(lo, lo + C, device=d.device)
+        o, t = _solve_chunk(jc, d, z2, rho, kprime, niter)
+        origins.append(o)
+        taus.append(t)
+    return (torch.cat(origins, dim=1)[:, :nroots].contiguous(),
+            torch.cat(taus, dim=1)[:, :nroots].contiguous())
+
+
+def secular_solve_window(d, z2, rho, kprime, start: int, nroots: int, *,
+                         niter: int = DEFAULT_NITER, chunk: int = 128,
+                         dense: bool = False):
+    """Single-problem view of :func:`secular_solve_window_batched`: d, z2
+    (K,); rho, kprime scalars.  Returns (origin (nroots,) int32, tau
+    (nroots,))."""
+    rho_t = torch.as_tensor(rho, dtype=d.dtype, device=d.device).reshape(1)
+    kp_t = torch.as_tensor(kprime, device=d.device).reshape(1)
+    o, t = secular_solve_window_batched(d[None], z2[None], rho_t, kp_t,
+                                        start, nroots, niter=niter,
+                                        chunk=chunk, dense=dense)
+    return o[0], t[0]
+
+
 def secular_solve(d, z2, rho, kprime, *, niter: int = DEFAULT_NITER,
                   chunk: int = 128, dense: bool = False):
     """Single-problem view of :func:`secular_solve_batched`: d, z2 (K,);

@@ -4,6 +4,14 @@
 // (the Pallas TPU kernel _secular_kernel; grid = problems x root blocks).
 // Plain version beside it: repro_torch.core.secular.secular_solve_batched.
 //
+// Each launch solves a root window, roots [start, start + nroots) of every
+// problem (plain version secular_solve_window_batched): the full launch is
+// the window (0, K), and a shard of the distributed conquer's cooperative
+// levels launches its own window only.  A root's arithmetic depends only
+// on its index and the whole pole state, so a window equals the same
+// columns of the full launch bit for bit, at any start, a multiple of the
+// block's roots or not.
+//
 // What bounds it on this card: FP64 arithmetic.  Each root sweeps the
 // kprime active poles niter + 5 times, about six operations per (root,
 // pole) pair per sweep (one of them a reciprocal), so a merge does
@@ -110,45 +118,52 @@ __global__ void __launch_bounds__(THREADS, 2)
 secular_roots_kernel(const T* __restrict__ d, const T* __restrict__ z2,
                      const T* __restrict__ rho, const int* __restrict__ kprime,
                      int* __restrict__ origin, T* __restrict__ tau,
-                     int K, int niter) {
+                     int K, int start, int nroots, int niter) {
   __shared__ T sd[STAGES * TILE];
   __shared__ T sz[STAGES * TILE];
   const int b = blockIdx.y;
   const secular::Team team;
-  const int j = blockIdx.x * ROOTS_PER_BLOCK + (int)threadIdx.x / TEAM;
-  const size_t off = (size_t)b * K;
+  // Root j of the window [start, start + nroots) lands in column j - start
+  // of a row nroots wide; the full launch is the window (0, K).
+  const int first = start + blockIdx.x * ROOTS_PER_BLOCK;
+  const int j = first + (int)threadIdx.x / TEAM;
+  const int end = start + nroots;
+  const size_t in = (size_t)b * K;
+  const size_t out = (size_t)b * nroots + (size_t)(j - start);
   const int kp = kprime[b];
-  // A block of deflated roots only: (min(j, K-1), 0).  The branch is the
-  // same for the whole block, so no barrier is left waiting.
-  if (blockIdx.x * ROOTS_PER_BLOCK >= kp) {
-    if (team.lane == 0 && j < K) {
-      origin[off + j] = j;
-      tau[off + j] = T(0);
+  // A block of deflated roots only: (j, 0).  The branch is the same for
+  // the whole block, so no barrier is left waiting.
+  if (first >= kp) {
+    if (team.lane == 0 && j < end) {
+      origin[out] = j;
+      tau[out] = T(0);
     }
     return;
   }
-  const T* db = d + off;
-  const T* zb = z2 + off;
+  const T* db = d + in;
+  const T* zb = z2 + in;
   RingPoles<T> src{db, zb, kp, team.lane, sd, sz};
   int o;
   T t;
-  // Teams past K or past kprime still run the sweeps: the tile loads
-  // synchronise the whole block.  solve_root writes their deflated value.
+  // Teams past the window's end or past kprime still run the sweeps: the
+  // tile loads synchronise the whole block.  solve_root writes their
+  // deflated value; a team past the window's end writes nothing.
   secular::solve_root<T>(
       team, j, K, kp, rho[b], niter, src, [&](int i) { return db[i]; },
       [&](int i) { return zb[i]; }, &o, &t);
-  if (team.lane == 0 && j < K) {
-    origin[off + j] = o;
-    tau[off + j] = t;
+  if (team.lane == 0 && j < end) {
+    origin[out] = o;
+    tau[out] = t;
   }
 }
 
 template <typename T>
 int launch(const T* d, const T* z2, const T* rho, const int* kprime,
-           int* origin, T* tau, int B, int K, int niter, void* stream) {
-  dim3 grid((K + ROOTS_PER_BLOCK - 1) / ROOTS_PER_BLOCK, B);
+           int* origin, T* tau, int B, int K, int start, int nroots,
+           int niter, void* stream) {
+  dim3 grid((nroots + ROOTS_PER_BLOCK - 1) / ROOTS_PER_BLOCK, B);
   secular_roots_kernel<T><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      d, z2, rho, kprime, origin, tau, K, niter);
+      d, z2, rho, kprime, origin, tau, K, start, nroots, niter);
   return (int)cudaGetLastError();
 }
 
@@ -156,16 +171,24 @@ int launch(const T* d, const T* z2, const T* rho, const int* kprime,
 
 extern "C" {
 
+// Roots [start, start + nroots) of every problem, written to (B, nroots)
+// outputs; the full launch is the window (0, K).  A shard of a
+// cooperative merge level solves only its own window
+// (core/merge.py::merge_level_coop).
 int secular_roots_f64(const double* d, const double* z2, const double* rho,
                       const int* kprime, int* origin, double* tau, int B,
-                      int K, int niter, void* stream) {
-  return launch<double>(d, z2, rho, kprime, origin, tau, B, K, niter, stream);
+                      int K, int start, int nroots, int niter,
+                      void* stream) {
+  return launch<double>(d, z2, rho, kprime, origin, tau, B, K, start, nroots,
+                        niter, stream);
 }
 
 int secular_roots_f32(const float* d, const float* z2, const float* rho,
                       const int* kprime, int* origin, float* tau, int B,
-                      int K, int niter, void* stream) {
-  return launch<float>(d, z2, rho, kprime, origin, tau, B, K, niter, stream);
+                      int K, int start, int nroots, int niter,
+                      void* stream) {
+  return launch<float>(d, z2, rho, kprime, origin, tau, B, K, start, nroots,
+                       niter, stream);
 }
 
 }  // extern "C"

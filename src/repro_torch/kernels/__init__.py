@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port (sources in ``repro_torch/csrc``).
 
-  secular_roots.py   -- batched secular root solve
+  secular_roots.py   -- batched secular root solve (and its root window)
   fused_update.py    -- fused conquer post-pass (weights + row update)
   resident_merge.py  -- single-launch small-K merge (solve + post-pass)
   sturm_count.py     -- batched Sturm counts (and their derivative sums)
@@ -31,13 +31,15 @@ from repro_torch.kernels.ops import (
     secular_postpass_batched,
     secular_solve,
     secular_solve_batched,
+    secular_solve_window_batched,
     sterf_batched,
     sturm_count_batched,
     zhat_reconstruct,
     zhat_reconstruct_batched,
 )
 from repro_torch.kernels.resident_merge import resident_merge_cuda
-from repro_torch.kernels.secular_roots import secular_solve_cuda
+from repro_torch.kernels.secular_roots import (secular_solve_cuda,
+                                               secular_solve_window_cuda)
 from repro_torch.kernels.sterf import sterf_cuda
 from repro_torch.kernels.sturm_count import (sturm_count_cuda,
                                              sturm_count_newton_cuda)
@@ -50,7 +52,9 @@ __all__ = [
     "resident_merge_cuda", "resolve_niter", "secular_merge_resident",
     "secular_merge_resident_batched", "secular_postpass",
     "secular_postpass_batched", "secular_postpass_cuda", "secular_solve",
-    "secular_solve_batched", "secular_solve_cuda", "sterf_batched",
+    "secular_solve_batched", "secular_solve_cuda",
+    "secular_solve_window_batched", "secular_solve_window_cuda",
+    "sterf_batched",
     "sterf_cuda", "sturm_count_batched", "sturm_count_cuda",
     "sturm_count_newton_cuda", "zhat_reconstruct",
     "zhat_reconstruct_batched", "zhat_reconstruct_cuda",

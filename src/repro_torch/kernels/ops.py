@@ -28,7 +28,8 @@ from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
 from repro_torch.kernels.deflate_chain import deflate_chain_cuda
 from repro_torch.kernels.fused_update import secular_postpass_cuda
 from repro_torch.kernels.resident_merge import resident_merge_cuda
-from repro_torch.kernels.secular_roots import secular_solve_cuda
+from repro_torch.kernels.secular_roots import (secular_solve_cuda,
+                                               secular_solve_window_cuda)
 from repro_torch.kernels.sterf import sterf_cuda
 from repro_torch.kernels.sturm_count import (sturm_bisect_tree_cuda,
                                              sturm_count_cuda,
@@ -73,6 +74,23 @@ def secular_solve_batched(d, z2, rho, kprime, *, niter: int | None = None,
                                   niter=niter)
     return _sec.secular_solve_batched(d, z2, rho, kprime, niter=niter,
                                       chunk=chunk, dense=dense)
+
+
+def secular_solve_window_batched(d, z2, rho, kprime, start: int,
+                                 nroots: int, *, niter: int | None = None,
+                                 chunk: int = 256, dense: bool = False):
+    """Roots ``[start, start + nroots)`` of B problems: d, z2 (B, K); rho,
+    kprime (B,).  On the card the root-window entry of the root-solve
+    kernel (one launch, this window's roots only).  Returns (origin
+    (B, nroots) int32, tau (B, nroots))."""
+    niter = resolve_niter(niter, d.dtype)
+    if _on_card(d):
+        return secular_solve_window_cuda(d.contiguous(), z2.contiguous(),
+                                         rho.contiguous(), _int32(kprime),
+                                         start, nroots, niter=niter)
+    return _sec.secular_solve_window_batched(d, z2, rho, kprime, start,
+                                             nroots, niter=niter,
+                                             chunk=chunk, dense=dense)
 
 
 def secular_postpass_batched(R, d, z, origin, tau, kprime, rho, *,

@@ -25,9 +25,10 @@ Instrumented sites of the port (grep for the literal string):
     ``serve.launch``  -- hit once per flush launch *attempt*, so a
                          count-driven schedule can fail the first launch
                          and let the transient retry succeed.
-
-The JAX package also hooks ``dist.halo``; the port's sharding layer
-comes in a later slice, and the registry accepts that site name already.
+    ``dist.halo``     -- corrupts one staged off-diagonal lane of a
+                         sharded solve (default: the last entry, a
+                         shard-boundary coupling) before the shards take
+                         their slices (``core.plan``'s sharded executor).
 
 The fast path is one module-global boolean: with no schedule configured
 every hook is ``if not _ACTIVE: return`` and the solver's outputs are

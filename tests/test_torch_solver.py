@@ -227,9 +227,19 @@ def test_float32_solve():
 
 @pytest.mark.parametrize("kw", [dict(mesh=2), dict(compress_halo=True)])
 def test_later_slices_raise_not_implemented(kw):
+    """The sharding knobs, once NotImplementedError in the port: ``mesh=2``
+    on the one CPU device raises ValueError, as the JAX package does with
+    one device, and ``compress_halo=True`` at one shard resolves to the
+    key without it (tests/test_torch_dist.py holds the sharded path)."""
     d, e = make_family("uniform", 40, seed=6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eigvalsh_tridiagonal(d, e, device="cpu", **kw)
+    if "mesh" in kw:
+        with pytest.raises(ValueError, match="devices"):
+            eigvalsh_tridiagonal(d, e, device="cpu", **kw)
+        return
+    assert tplan.resolve_solve_route(40, device="cpu", **kw) == \
+        tplan.resolve_solve_route(40, device="cpu")
+    assert torch.equal(eigvalsh_tridiagonal(d, e, device="cpu", **kw),
+                       eigvalsh_tridiagonal(d, e, device="cpu"))
 
 
 @pytest.mark.parametrize("kw", [dict(method="sterf"), dict(method="lazy"),
