@@ -182,6 +182,32 @@ per source, in parallel), then:
      1e-13 (a zeroed and a sign-flipped tau fail that bar) at B = 1,
      K = 16384 (four windows of 4096) and B = 8, K = 8192 (two), timing a
      window beside the full launch and its bound.
+ 12. trains qwen3-0.6b at full width (bfloat16) on four ranks that share
+     the card (``torch.distributed`` over gloo, spawned processes, DTensor
+     collectives staged through host memory by ``dist.host_staged``),
+     every kernel's launch count zeroed at each rank's start and read at
+     its end: (a) ``launch.train.main --devices 4 --model-parallel 2``,
+     mesh (data 2, model 2), 6 adamw steps at batch 8 x seq 256 with a
+     served probe every 2 steps, held to a one-rank run of the same steps
+     (same seed: same parameters and batches) at 8 bfloat16 eps relative
+     per step (loss and grad norm), every rank's ``lr_scale`` equal,
+     the bisection tree and the Newton sweep launched, each rank's
+     parameter and optimizer bytes the rules' share to the byte, each
+     rank's peak memory and step times (CUDA events) printed, and one more
+     step's collectives counted (``CommDebugMode``) beside the bytes the
+     host staging carried; (b) world size 1 on NCCL, mesh (1, 1): one
+     step on ``DTensor``s (``make_mesh_for(1)``, ``param_shardings``,
+     ``distribute_tree``) equal to the one-device step bit for bit; (c) the
+     int8 compressed step on (pod 2, data 1, model 2), two steps: step 0's
+     loss within the bound of (a) of the one-rank loss, step 1's within
+     1e-2 relative (one adamw update, whose int8-rounded gradient zeroes
+     the sign of elements below half a quantization step), and each
+     rank's int8 payload plus residual equal to its float32 gradient at
+     1e-6 relative, the mean equal to the pods' average payload; (d) the
+     pipelined step on (pod 2, data 2, model 1), n_micro 4: the step-0
+     loss within the bound of (a) of the one-rank loss; (e) (a)'s step-4
+     checkpoint restored onto one rank and onto (data 1, model 2) (two
+     ranks), every leaf equal to the saved array bit for bit (its CRC32).
 
 Every check raises on failure.  The last lines are a JSON record of the
 kernels, the card's name and power limit, and the result line
@@ -1786,6 +1812,562 @@ def _phase11(torch, np, smi, ref16):
     return launches, window
 
 
+# ---------------------------------------------------------------- phase 12
+
+_P12_KERNELS = ("resident_merge", "secular_roots", "fused_update",
+                "deflate_chain", "zhat", "boundary_update", "sturm_count",
+                "sturm_count_newton", "sturm_bisect_tree", "sterf")
+# Per-step loss and grad norm of four ranks against one (bfloat16
+# parameters and activations; the ranks reduce partial sums in another
+# order and round them to bfloat16): 8 bfloat16 eps relative.
+_P12_BF16_BOUND = 8 * 2.0 ** -8
+_P12_ARGS = ["--arch", "qwen3-0.6b", "--batch", "8", "--seq", "256",
+             "--log-every", "100", "--steps", "6", "--spectral-every", "2",
+             "--serve-monitor", "--probe-steps", "4", "--probe-batch", "1",
+             "--target-sharpness", "20", "--ckpt-every", "4"]
+
+
+def _p12_kernels():
+    from repro_torch.kernels.boundary_update import boundary_rows_update_cuda
+    from repro_torch.kernels.deflate_chain import deflate_chain_cuda
+    from repro_torch.kernels.fused_update import secular_postpass_cuda
+    from repro_torch.kernels.resident_merge import resident_merge_cuda
+    from repro_torch.kernels.secular_roots import secular_solve_cuda
+    from repro_torch.kernels.sterf import sterf_cuda
+    from repro_torch.kernels.sturm_count import (sturm_bisect_tree_cuda,
+                                                 sturm_count_cuda,
+                                                 sturm_count_newton_cuda)
+    from repro_torch.kernels.zhat import zhat_reconstruct_cuda
+    return dict(zip(_P12_KERNELS, (
+        resident_merge_cuda, secular_solve_cuda, secular_postpass_cuda,
+        deflate_chain_cuda, zhat_reconstruct_cuda, boundary_rows_update_cuda,
+        sturm_count_cuda, sturm_count_newton_cuda, sturm_bisect_tree_cuda,
+        sterf_cuda)))
+
+
+def _p12_share(tree, mesh):
+    """(local bytes, the rules' exact share in bytes, the whole's bytes)
+    of a DTensor tree."""
+    from repro_torch.tree import tree_leaves
+    names = mesh.mesh_dim_names
+    local = share = whole = 0
+    for x in tree_leaves(tree):
+        div = 1
+        for name, pl in zip(names, x.placements):
+            if pl.is_shard():
+                div *= mesh.size(names.index(name))
+        n = x.numel()
+        if n % div:
+            raise AssertionError(f"{tuple(x.shape)} does not split {div} ways")
+        share += n // div * x.element_size()
+        whole += n * x.element_size()
+        local += x.to_local().numel() * x.element_size()
+    return local, share, whole
+
+
+def _p12_batches(torch, cfg, steps, dev):
+    from repro_torch.data import SyntheticTokens
+    src = SyntheticTokens(cfg.vocab_size, 256, seed=0)
+    return [{k: torch.from_numpy(v).to(dev) for k, v in
+             src.batch(s, 0, 8).items()} for s in range(steps)]
+
+
+def _p12_rank(rank, world, store, work, job, queue):
+    """A phase-12 rank: ``job`` "train" runs (a), (c) and (d) on four ranks,
+    "restore" (e)'s two-rank restore."""
+    import datetime
+    import traceback
+    sys.path[:0] = [os.path.join(HERE, "src")]
+    os.environ["LOCAL_RANK"] = "0"
+    import torch
+    import torch.distributed as dist
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(seconds=600))
+        # Ranks sharing the card: DTensor's collectives through host
+        # memory (launch.train installs it too, for its own group).
+        from repro_torch.dist import host_staged
+        host_staged.install()
+        out = (_p12_train(torch, rank, work) if job == "train"
+               else _p12_restore(torch, rank, work))
+        queue.put((rank, "ok", out))
+    except BaseException:
+        queue.put((rank, "error", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _p12_train(torch, rank, work):
+    import torch.distributed as dist
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import host_staged
+    from repro_torch.dist import sharding as sh
+    from repro_torch.dist.compression import (_QMAX, CompressionState,
+                                              compressed_cross_pod_mean,
+                                              init_compression_state)
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.pipeline import (make_pipelined_train_step,
+                                             stage_shardings)
+    from repro_torch.launch.steps import (_pod_view, loss_and_grads,
+                                          make_train_step,
+                                          make_train_step_compressed)
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves, tree_map
+
+    dev = torch.device("cuda", 0)
+    kernels = _p12_kernels()
+    out = {}
+    # ---- (a) the trainer on four ranks, mesh (data 2, model 2) ----------
+    for k in kernels.values():
+        k.launches = 0
+    host_staged.reset_staged_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    hook_s = [0.0]
+
+    def keep(step, params, batch):
+        # Each step's starting parameters, gathered, for the one-rank
+        # check at the same parameters (rank 0 writes them).
+        th = time.perf_counter()
+        full = tree_map(lambda x: x.full_tensor(), params)
+        if rank == 0:
+            torch.save({"params": full, "batch": batch},
+                       os.path.join(work, f"p12_step{step}.pt"))
+        del full
+        hook_s[0] += time.perf_counter() - th
+
+    rep = ttrain.main(_P12_ARGS + ["--devices", "4", "--model-parallel", "2",
+                                   "--ckpt-dir", os.path.join(work, "a")],
+                      before_step=keep)
+    out["a_s"] = time.perf_counter() - t0 - hook_s[0]
+    out["hook_s"] = hook_s[0]
+    out["launches"] = {n: k.launches for n, k in kernels.items()}
+    out["staged"] = host_staged.staged_counts()
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    params, state = rep["state"]
+    mesh = tree_leaves(params)[0].device_mesh
+    out["state_bytes"] = _p12_share((params, state), mesh)
+    for key in ("losses", "grad_norms", "lr_scales", "step_event_ms",
+                "mesh", "probes", "lam_max"):
+        out[key] = rep[key]
+    # One more step under CommDebugMode: its collectives and the bytes the
+    # host staging carried for them.
+    cfg = get_config("qwen3-0.6b")
+    opt = adamw(lr=3e-4)
+    step = make_train_step(cfg, opt, remat=False)
+    batch = _p12_batches(torch, cfg, 1, dev)[0]
+    sh.set_activation_mesh(mesh)
+    host_staged.reset_staged_counts()
+    comm = CommDebugMode()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with comm:
+        ev[0].record()
+        step(params, state, sh.distribute_tree(batch, {
+            k: sh.batch_sharding(mesh, 8, 2) for k in batch}))
+        ev[1].record()
+    torch.cuda.synchronize()
+    sh.set_activation_mesh(None)
+    out["comm"] = {str(k): int(v) for k, v in comm.get_comm_counts().items()}
+    out["comm_staged"] = host_staged.staged_counts()
+    out["comm_step_ms"] = ev[0].elapsed_time(ev[1])
+    del rep, params, state
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()    # the ranks share the card's memory
+
+    # ---- (c) the int8 compressed step, (pod 2, data 1, model 2) ----------
+    params = tf.init_model(0, cfg, device=dev)
+    state = opt.init(params)
+    batches = _p12_batches(torch, cfg, 2, dev)
+    cmesh = make_mesh_for(4, model_parallel=2, pods=2, device_type="cuda")
+    inner = cmesh[("data", "model")]
+    pods = cmesh.get_group("pod")
+    sh.set_activation_mesh(cmesh)
+    try:
+        p_sh = sh.param_shardings(params, cmesh)
+        P, S = sh.distribute_tree((params, state), (
+            p_sh, sh.opt_shardings(state, params, p_sh, cmesh)))
+        del params, state   # the ranks share the card: keep shards only
+        err = init_compression_state(
+            tree_map(lambda p: _pod_view(p, inner), P)).error
+        cstep = make_train_step_compressed(cfg, opt, cmesh, remat=True)
+        closs, cms, gap = [], [], 0.0
+        for i, b in enumerate(batches):
+            B = sh.distribute_tree(b, {k: sh.batch_sharding(cmesh, 8, 2)
+                                       for k in b})
+            if i == 0:
+                from torch.distributed.tensor.experimental import \
+                    implicit_replication
+                lb = {k: _pod_view(v, inner) for k, v in B.items()}
+                sh.set_manual_axes({"pod"})
+                try:
+                    with implicit_replication():
+                        _, _, g = loss_and_grads(
+                            lambda p: tf.loss_fn(p, cfg, lb),
+                            tree_map(lambda p: _pod_view(p, inner), P))
+                        mean, new = compressed_cross_pod_mean(
+                            g, CompressionState(err), pods)
+                        for a, e, w in zip(tree_leaves(mean),
+                                           tree_leaves(new.error),
+                                           tree_leaves(g)):
+                            w32 = w.to(torch.float32)
+                            scale = torch.clamp_min(
+                                torch.amax(torch.abs(w32)) / _QMAX,
+                                torch.finfo(torch.float32).tiny)
+                            deq = torch.clamp(torch.round(w32 / scale),
+                                              -_QMAX, _QMAX) * scale
+                            deq, e, w32, a = (x.to_local() for x in
+                                              (deq, e, w32, a))
+                            top = float(w32.abs().max()) or 1.0
+                            gap = max(gap, float((deq + e - w32).abs().max())
+                                      / top)
+                            avg = deq.clone()
+                            dist.all_reduce(avg, group=pods)
+                            avg = avg / dist.get_world_size(pods)
+                            # the mean comes back in the gradient's dtype
+                            gap = max(gap, float((a.to(torch.float32) - avg.to(
+                                a.dtype).to(torch.float32)).abs().max()))
+                        del g, mean, new
+                finally:
+                    sh.set_manual_axes(set())
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            P, S, m, err = cstep(P, S, B, err, 1.0)
+            ev[1].record()
+            closs.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            cms.append(ev[0].elapsed_time(ev[1]))
+        out["c"] = dict(losses=closs, gap=gap, ms=cms)
+    finally:
+        sh.set_activation_mesh(None)
+    del P, S, err
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (d) the pipelined step, (pod 2, data 2, model 1), n_micro 4 -----
+    pmesh = make_mesh_for(4, model_parallel=1, pods=2, device_type="cuda")
+    sh.set_activation_mesh(pmesh)
+    try:
+        params = tf.init_model(0, cfg, device=dev)
+        state = opt.init(params)
+        p_sh = stage_shardings(sh.param_shardings(params, pmesh), params,
+                               cfg, pmesh)
+        P, S = sh.distribute_tree((params, state), (
+            p_sh, sh.opt_shardings(state, params, p_sh, pmesh)))
+        del params, state
+        pstep = make_pipelined_train_step(cfg, opt, n_stages=2, n_micro=4,
+                                          remat=True, mesh=pmesh)
+        B = sh.distribute_tree(batches[0], {
+            k: sh.sharding(pmesh, ("data", None)) for k in batches[0]})
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        P, S, m = pstep(P, S, B, 1.0)
+        ev[1].record()
+        out["d"] = dict(loss=float(m["loss"]), grad_norm=float(
+            m["grad_norm"]))
+        torch.cuda.synchronize()
+        out["d"]["ms"] = ev[0].elapsed_time(ev[1])
+    finally:
+        sh.set_activation_mesh(None)
+    out["peak_all"] = torch.cuda.max_memory_allocated(dev)
+    return out
+
+
+def _p12_crcs(torch, tree):
+    """CRC32 of each leaf's bytes (a DTensor gathered whole), in the
+    checkpoint's flattening order."""
+    import zlib
+
+    from repro_torch.checkpoint.manager import _flatten_with_paths
+    out = {}
+    for key, x in _flatten_with_paths(tree):
+        if hasattr(x, "full_tensor"):
+            x = x.full_tensor()
+        t = x.detach().contiguous().reshape(-1).cpu()
+        out[key] = zlib.crc32(t.view(torch.uint8).numpy()) & 0xFFFFFFFF
+    return out
+
+
+def _p12_like(torch, dev):
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    params = tf.init_model(1, get_config("qwen3-0.6b"), device=dev)
+    return params, adamw(lr=3e-4).init(params)
+
+
+def _p12_restore(torch, rank, work):
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_mesh_for
+    dev = torch.device("cuda", 0)
+    params, state = _p12_like(torch, dev)
+    mesh = make_mesh_for(2, model_parallel=2, device_type="cuda")
+    p_sh = sh.param_shardings(params, mesh)
+    shardings = (p_sh, sh.opt_shardings(state, params, p_sh, mesh))
+    t0 = time.perf_counter()
+    tree, _, step = CheckpointManager(os.path.join(work, "a")).resume(
+        (params, state), shardings=shardings)
+    restore_s = time.perf_counter() - t0
+    del params, state
+    local, share, _ = _p12_share(tree, mesh)
+    return dict(step=step, crcs=_p12_crcs(torch, tree), restore_s=restore_s,
+                mesh=str(tuple(mesh.mesh_dim_names)) + str(tuple(mesh.shape)),
+                local=local, share=share)
+
+
+def _p12_spawn(world, job, store, work):
+    """Start ``world`` rank processes; :func:`_p12_collect` waits for
+    them (this process works on the card meanwhile)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=_p12_rank,
+                         args=(r, world, store, work, job, queue))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    return job, procs, queue
+
+
+def _p12_collect(started, timeout):
+    job, procs, queue = started
+    results = {}
+    try:
+        for _ in procs:
+            rank, status, out = queue.get(timeout=timeout)
+            if status != "ok":
+                raise AssertionError(f"phase 12 {job} rank {rank}:\n{out}")
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60)
+            if p.is_alive():
+                p.kill()
+    return results
+
+
+def _phase12(torch, np, smi):
+    """Phase 12: the multi-rank trainer on the card (see the module
+    docstring).  Raises on any failed check; returns the phase's launch
+    counts by kernel name (the four ranks of (a), summed)."""
+    import datetime
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import transformer as tf
+    from repro_torch.optim import adamw
+    from repro_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    bound = _P12_BF16_BOUND
+    torch.cuda.empty_cache()    # four more processes share the card
+    print(f"[12 memory] this process holds "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB of the card "
+          f"as phase 12 starts ({smi})")
+    work = tempfile.mkdtemp(prefix="repro-torch-phase12-")
+    try:
+        # ---- (a), (c), (d) on four ranks sharing the card ----------------
+        t0 = time.perf_counter()
+        ranks = _p12_collect(_p12_spawn(4, "train", os.path.join(
+            work, "store4"), work), 900)
+        ranks_s = time.perf_counter() - t0
+        r0 = ranks[0]
+        launches = {n: sum(r["launches"][n] for r in ranks.values())
+                    for n in _P12_KERNELS}
+        # Each step on one rank, in this process, from the parameters and
+        # batch that step of (a) started from: (a)'s loss and grad norm
+        # against the one-device step's on the same inputs.
+        cfg = get_config("qwen3-0.6b")
+        ref_step = make_train_step(cfg, adamw(lr=3e-4), remat=False)
+        one = {"losses": [], "grad_norms": [], "ms": []}
+        t0 = time.perf_counter()
+        for k in range(6):
+            saved = torch.load(os.path.join(work, f"p12_step{k}.pt"),
+                               map_location=dev)
+            params = saved["params"]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            _, _, m = ref_step(params, adamw(lr=3e-4).init(params),
+                               saved["batch"], 1.0)
+            ev[1].record()
+            one["losses"].append(float(m["loss"]))
+            one["grad_norms"].append(float(m["grad_norm"]))
+            torch.cuda.synchronize()
+            one["ms"].append(ev[0].elapsed_time(ev[1]))
+            del saved, params, m
+        one_s = time.perf_counter() - t0
+        rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+        err_l = rel(r0["losses"], one["losses"])
+        err_g = rel(r0["grad_norms"], one["grad_norms"])
+        if len(r0["losses"]) != 6 or err_l > bound or err_g > bound:
+            raise AssertionError(
+                f"(a) four ranks {r0['losses']} / {r0['grad_norms']} vs one "
+                f"rank at the same parameters {one['losses']} / "
+                f"{one['grad_norms']}: {err_l:.3e} / {err_g:.3e} (bound "
+                f"{bound:.3e})")
+        scales = {tuple(r["lr_scales"]) for r in ranks.values()}
+        if len(scales) != 1 or min(r0["lr_scales"]) >= 1.0:
+            raise AssertionError(f"(a) lr_scales differ or never damped: "
+                                 f"{scales}")
+        for name in ("sturm_bisect_tree", "sturm_count_newton"):
+            if launches[name] == 0:
+                raise AssertionError(f"(a) {name} never launched")
+        for rank, r in sorted(ranks.items()):
+            local, share, full = r["state_bytes"]
+            if local != share:
+                raise AssertionError(f"(a) rank {rank} holds {local} bytes "
+                                     f"of parameters and optimizer state, "
+                                     f"the rules' share is {share}")
+        step_ms = statistics.median(r0["step_event_ms"][1:])
+        one_ms = statistics.median(one["ms"][1:])
+        print(f"[12 train] qwen3-0.6b full width bfloat16, {r0['mesh']} on "
+              f"4 gloo ranks sharing cuda:0, adamw, batch 8 x seq 256, 6 "
+              f"steps, a served probe every 2: losses {r0['losses']} vs one "
+              f"rank from the same parameters and batch {one['losses']}; "
+              f"max rel err loss {err_l:.3e}, "
+              f"grad_norm {err_g:.3e} (bound 8 bf16 eps = {bound:.3e}); "
+              f"lr_scales {r0['lr_scales']} on every rank; probes "
+              f"{r0['probes']}, lam_max {r0['lam_max']:.6g} ({smi})")
+        print(f"[12 time] step {step_ms:.1f} ms on four ranks (CUDA "
+              f"events on rank 0, median of steps 2-6) vs {one_ms:.1f} ms "
+              f"on one (the same steps, from the same parameters, median "
+              f"of steps 2-6); (a) {r0['a_s']:.1f} s host wall on rank 0 "
+              f"(beside {r0['hook_s']:.1f} s gathering and saving each "
+              f"step's parameters for the check), the one-rank steps "
+              f"{one_s:.1f} s ({smi})")
+        for rank, r in sorted(ranks.items()):
+            local, share, full = r["state_bytes"]
+            print(f"[12 memory] rank {rank}: parameters + adamw state "
+                  f"{local} B == the rules' share ({share} B; the whole is "
+                  f"{full} B, {full / local:.2f}x); peak device memory "
+                  f"(a) {r['peak'] / 2**30:.2f} GiB, whole phase "
+                  f"{r['peak_all'] / 2**30:.2f} GiB ({smi})")
+        print(f"[12 comm] one more step on (data 2, model 2): "
+              f"{r0['comm_step_ms']:.1f} ms (CUDA events); CommDebugMode "
+              f"counts {r0['comm']}; staged through host memory "
+              f"(calls, bytes) {r0['comm_staged']}; over (a) on rank 0 "
+              f"{r0['staged']} ({smi})")
+        print(f"[12 counts] launches in phase 12 (a), four ranks: "
+              f"{launches}")
+
+        # ---- (c) compressed, (d) pipelined ------------------------------
+        c, d = r0["c"], r0["d"]
+        if (abs(c["losses"][0] - one["losses"][0]) > bound * abs(
+                one["losses"][0]) or abs(c["losses"][1] - one["losses"][1])
+                > 1e-2 * abs(one["losses"][1]) or c["gap"] > 1e-6):
+            raise AssertionError(f"(c) compressed losses {c['losses']} vs "
+                                 f"{one['losses'][:2]}; payload gap "
+                                 f"{c['gap']:.3e}")
+        print(f"[12 compressed] (pod 2, data 1, model 2), int8 cross-pod "
+              f"mean: losses {c['losses']} vs uncompressed one-rank "
+              f"{one['losses'][:2]} (step 0 bound {bound:.3e}, step 1 "
+              f"1e-2 relative); payload + residual == float32 gradient, "
+              f"mean == pod average: max rel gap {c['gap']:.3e} (bar 1e-6);"
+              f" step {c['ms'][1]:.1f} ms ({smi})")
+        if abs(d["loss"] - one["losses"][0]) > bound * abs(one["losses"][0]):
+            raise AssertionError(f"(d) pipelined loss {d['loss']} vs "
+                                 f"{one['losses'][0]}")
+        print(f"[12 pipeline] (pod 2, data 2, model 1), 2 stages, n_micro "
+              f"4: step-0 loss {d['loss']:.6g} vs one-rank "
+              f"{one['losses'][0]:.6g} (bound {bound:.3e} relative); step "
+              f"{d['ms']:.1f} ms ({smi})")
+
+        # ---- (e)'s two ranks start; (b) and (e)'s one rank run here -----
+        torch.cuda.empty_cache()
+        started = _p12_spawn(2, "restore", os.path.join(work, "store2"),
+                             work)
+
+        # ---- (b) world size 1 on NCCL, mesh (1, 1) ----------------------
+        opt = adamw(lr=3e-4)
+        batch = _p12_batches(torch, cfg, 1, dev)[0]
+        params = tf.init_model(0, cfg, device=dev)
+        state = opt.init(params)
+        step = make_train_step(cfg, opt, remat=False)
+        p1, s1, m1 = step(params, state, batch, 1.0)
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(work, 'store1')}",
+            rank=0, world_size=1, timeout=datetime.timedelta(seconds=300))
+        try:
+            mesh = make_mesh_for(1, device_type="cuda")
+            sh.set_activation_mesh(mesh)
+            p_sh = sh.param_shardings(params, mesh)
+            P, S, B = sh.distribute_tree((params, state, batch), (
+                p_sh, sh.opt_shardings(state, params, p_sh, mesh),
+                {k: sh.batch_sharding(mesh, 8, 2) for k in batch}))
+            p2, s2, m2 = step(P, S, B, 1.0)
+            same = all(
+                torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                            else a, (b.full_tensor().view(torch.int16)
+                                     if b.dtype == torch.bfloat16
+                                     else b.full_tensor()))
+                for a, b in zip(tree_leaves((p1, s1)), tree_leaves((p2, s2))))
+            same_m = all(torch.equal(m1[k], m2[k]) for k in ("loss",
+                                                              "grad_norm"))
+        finally:
+            sh.set_activation_mesh(None)
+            dist.destroy_process_group()
+        if not (same and same_m):
+            raise AssertionError(
+                f"(b) mesh (1, 1) step != one-device step: state "
+                f"{same}, metrics {same_m} ({float(m1['loss'])!r} vs "
+                f"{float(m2['loss'])!r})")
+        print(f"[12 nccl] world size 1 on NCCL, {mesh.mesh_dim_names} "
+              f"{tuple(mesh.shape)}: one step on DTensors == the one-device "
+              f"step bit for bit (parameters, adamw state, loss "
+              f"{float(m1['loss'])!r}, grad norm {float(m1['grad_norm'])!r})")
+        del p1, s1, p2, s2, P, S, params, state
+
+        # ---- (e) reshard-on-load of (a)'s step-4 checkpoint --------------
+        from repro_torch.checkpoint import CheckpointManager
+        with open(os.path.join(work, "a", "step_00000004",
+                               "manifest.json")) as f:
+            manifest = _json.load(f)
+        want = {k: v["crc32"] for k, v in manifest["leaves"].items()}
+        like = _p12_like(torch, dev)
+        t0 = time.perf_counter()
+        tree, _, got_step = CheckpointManager(os.path.join(work, "a")).resume(
+            like)
+        one_restore_s = time.perf_counter() - t0
+        if got_step != 4 or _p12_crcs(torch, tree) != want:
+            raise AssertionError(f"(e) one-rank restore of step {got_step} "
+                                 f"differs from the saved arrays")
+        del tree, like
+        two = _p12_collect(started, 600)
+        for rank, r in sorted(two.items()):
+            if r["step"] != 4 or r["crcs"] != want or r["local"] != r["share"]:
+                raise AssertionError(f"(e) rank {rank} of {r['mesh']}: "
+                                     f"step {r['step']}, shard {r['local']} "
+                                     f"B vs {r['share']} B, CRCs equal "
+                                     f"{r['crcs'] == want}")
+        print(f"[12 reshard] (a)'s step-4 checkpoint ({len(want)} leaves) "
+              f"restored onto one rank ({one_restore_s:.1f} s) and onto "
+              f"{two[0]['mesh']} (two ranks, {two[0]['restore_s']:.1f} s): "
+              f"every leaf == the saved array bit for bit (CRC32); each "
+              f"rank holds its share ({two[0]['local']} B) ({smi})")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[12 time] phase 12 took {time.perf_counter() - t_phase:.1f} s "
+          f"(the four-rank spawn {ranks_s:.1f} s) ({smi})")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3104,6 +3686,9 @@ def main() -> int:
     # ---- phase 11: the distributed conquer, P shards on the card --------
     phase11_launches, window11 = _phase11(torch, np, smi, refs["u16"])
 
+    # ---- phase 12: the multi-rank trainer, four ranks on the card -------
+    phase12_launches = _phase12(torch, np, smi)
+
     sources = {"secular_roots": ("src/repro_torch/csrc/secular_roots.cu",
                                  "src/repro/kernels/secular_roots.py:265"),
                "fused_update": ("src/repro_torch/csrc/fused_update.cu",
@@ -3345,6 +3930,7 @@ def main() -> int:
         rec["phase9_launches"] = int(phase9_launches.get(rec["name"], 0))
         rec["phase10_launches"] = int(phase10_launches.get(rec["name"], 0))
         rec["phase11_launches"] = int(phase11_launches[rec["name"]])
+        rec["phase12_launches"] = int(phase12_launches[rec["name"]])
     w16, w8 = window11[1, 16384], window11[8, 8192]
     roots_rec = next(r for r in out if r["name"] == "secular_roots")
     roots_rec.update(   # row 2's root-window entry (the distributed conquer)

@@ -17,9 +17,16 @@ path with ``/`` -> ``__``, and the manifest keeps its shape, dtype name
 and CRC32.  A bfloat16 leaf is written as the JAX package writes one
 (``np.save`` of an ``ml_dtypes`` bfloat16 array: header ``'<V2'``, the
 raw two-byte values) and read back through an int16 view, so neither
-side needs ``ml_dtypes``.  One process, one device: the JAX package's
-reshard-on-load (``shardings=``) is the multi-device trainer's, ROADMAP
-Queue 1 item 4.
+side needs ``ml_dtypes``.
+
+On a mesh (the multi-rank trainer) every rank calls ``save_tree`` with
+its ``DTensor`` leaves: each leaf is gathered (``full_tensor()``, a
+collective) and rank 0 writes the same full logical arrays as a
+one-device run, while the other ranks wait at a barrier.  ``restore_tree``
+(and ``CheckpointManager.resume``) with ``shardings=`` distributes each
+restored leaf onto the current mesh -- the elastic reshard-on-load path:
+a checkpoint of any mesh (or of one device, or of the JAX package)
+restores onto any other.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.tune import resolve_device
+from repro_torch.dist.sharding import (_is_dtensor, _leaves_with_paths,
+                                       distribute_leaf)
 from repro_torch.tree import is_bfloat16, leaf_from_numpy
 
 _BF16_DESCR = "<V2"
@@ -96,18 +105,36 @@ def _save_npy(path: str, arr: np.ndarray, dtype_name: str):
         np.ascontiguousarray(arr).tofile(f)
 
 
+def _group_rank():
+    """(rank, world size) of the default process group; (0, 1) where
+    there is none."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 def save_tree(directory: str, step: int, tree: Any, *,
               meta: Optional[dict] = None, keep: int = 3) -> str:
-    """Atomically save a tree checkpoint.  Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
+    """Atomically save a tree checkpoint.  Returns the final path.
+
+    ``DTensor`` leaves are gathered one at a time (every rank must call
+    this); rank 0 writes each and the others wait for it at a barrier."""
+    rank, world = _group_rank()
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
+    if rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
 
     manifest = {"step": step, "meta": meta or {}, "leaves": {}}
     for key, leaf in _flatten_with_paths(tree):
+        if _is_dtensor(leaf):
+            leaf = leaf.full_tensor()
+        if rank != 0:
+            continue
         arr, dtype_name = _as_numpy(leaf)
         fn = key.replace("/", "__") + ".npy"
         _save_npy(os.path.join(tmp, fn), arr, dtype_name)
@@ -117,19 +144,23 @@ def save_tree(directory: str, step: int, tree: Any, *,
             "dtype": dtype_name,
             "crc32": _crc32(arr),
         }
-    with open(os.path.join(tmp, "manifest.json"), "w") as f:
-        json.dump(manifest, f, indent=1)
-        f.flush()
-        os.fsync(f.fileno())
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)
+    if rank == 0:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+            f.flush()
+            os.fsync(f.fileno())
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)
 
-    # keep-N garbage collection
-    steps = sorted(all_steps(directory))
-    for s in steps[:-keep] if keep > 0 else []:
-        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
-                      ignore_errors=True)
+        # keep-N garbage collection
+        steps = sorted(all_steps(directory))
+        for s in steps[:-keep] if keep > 0 else []:
+            shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
+                          ignore_errors=True)
+    if world > 1:
+        import torch.distributed as dist
+        dist.barrier()
     return final
 
 
@@ -159,16 +190,23 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore_tree(directory: str, step: int, like: Any, *,
-                 verify: bool = True) -> Any:
+                 shardings: Any = None, verify: bool = True) -> Any:
     """Restore a tree saved by save_tree (by either package).
 
     `like` supplies the tree structure (values ignored).  Each leaf comes
     back as a tensor of its saved dtype on the device of `like`'s leaf
-    where that is a tensor, else on the card.  Returns (tree, meta).
+    where that is a tensor (a ``DTensor``'s local device), else on the
+    card.  If `shardings` (a matching tree of
+    ``dist.sharding.Sharding``) is given, every rank reads the full
+    arrays and each leaf is distributed with its sharding -- the elastic
+    reshard-on-load path.  Returns (tree, meta).
     """
     base = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(base, "manifest.json")) as f:
         manifest = json.load(f)
+    by_key = ({} if shardings is None else
+              {"/".join(str(p) for p in path): sh
+               for path, sh in _leaves_with_paths(shardings)})
 
     leaves = []
     for key, like_leaf in _flatten_with_paths(like):
@@ -178,9 +216,16 @@ def restore_tree(directory: str, step: int, like: Any, *,
             crc = _crc32(arr)
             if crc != entry["crc32"]:
                 raise IOError(f"checksum mismatch for {key} in {base}")
-        where = (like_leaf.device if isinstance(like_leaf, torch.Tensor)
-                 else resolve_device(None))
-        leaves.append(leaf_from_numpy(arr, where))
+        if _is_dtensor(like_leaf):
+            where = like_leaf.to_local().device
+        elif isinstance(like_leaf, torch.Tensor):
+            where = like_leaf.device
+        else:
+            where = resolve_device(None)
+        leaf = leaf_from_numpy(arr, where)
+        if shardings is not None:   # one whole leaf on the device at a time
+            leaf = distribute_leaf(leaf, by_key[key])
+        leaves.append(leaf)
     return _unflatten(like, iter(leaves)), manifest["meta"]
 
 
@@ -198,10 +243,12 @@ class CheckpointManager:
                              keep=self.keep)
         return None
 
-    def resume(self, like: Any):
-        """Returns (tree, meta, step) or (None, None, 0) if fresh."""
+    def resume(self, like: Any, shardings: Any = None):
+        """Returns (tree, meta, step) or (None, None, 0) if fresh; with
+        ``shardings``, the tree distributed onto their mesh."""
         step = latest_step(self.directory)
         if step is None:
             return None, None, 0
-        tree, meta = restore_tree(self.directory, step, like)
+        tree, meta = restore_tree(self.directory, step, like,
+                                  shardings=shardings)
         return tree, meta, step

@@ -420,8 +420,13 @@ class SolvePlan:
                 d_run, e_run, track, key.mesh_devices,
                 compress_halo=key.compress_halo, **tree_kw)
         else:
-            lam, rows, kprimes = _br._br_dc_padded_batch(d_run, e_run, track,
-                                                         **tree_kw)
+            split = _batch_sharding(Bb, dev)
+            if split is None:
+                lam, rows, kprimes = _br._br_dc_padded_batch(
+                    d_run, e_run, track, **tree_kw)
+            else:
+                lam, rows, kprimes = _executor_split(d_run, e_run, track,
+                                                     split, **tree_kw)
         _br.SOLVE_COUNTER.increment()
         # Chaos-harness hook: NaN-poisons configured eigenvalue rows before
         # the mixed stage (a poisoned mixed solve exercises recovery by
@@ -479,6 +484,47 @@ class SolvePlan:
             blo = bhi = None
         return _br.BRBatchResult(lam, blo, bhi,
                                  tuple(k[:B] for k in kprimes))
+
+
+def _batch_sharding(bucket: int, dev: torch.device):
+    """The devices a batched solve's bucket is split over, or None.
+
+    A batched solve is embarrassingly parallel across problems, so the
+    bucket is split across the visible devices of ``dev``'s type
+    (``launch.mesh.visible_devices``): the largest power of two of them,
+    and at most the bucket (a power of two, so the split is even).
+    Single-controller, as the distributed conquer is: this process drives
+    each device's slice and concatenates the slices in order.  Returns
+    None where the split does not apply (one device, or a bucket of one).
+    """
+    devs = visible_devices(dev.type)
+    if len(devs) <= 1:
+        return None
+    n = 1 << (len(devs).bit_length() - 1)   # largest pow2 <= len(devs)
+    n = min(n, bucket)
+    if n <= 1:
+        return None
+    return tuple(devs[:n])
+
+
+def _executor_split(d_run, e_run, track, devices, **kw):
+    """The tree on each device's contiguous slice of the (B, N) batch,
+    concatenated in order on the batch's device.  Every problem lane is
+    independent, so the result is the unsplit solve's bit for bit."""
+    home = d_run.device
+    per = d_run.shape[0] // len(devices)
+    parts = []
+    for i, name in enumerate(devices):
+        dev = torch.device(name)
+        sl = slice(i * per, (i + 1) * per)
+        parts.append(_br._br_dc_padded_batch(
+            d_run[sl].to(dev), e_run[sl].to(dev),
+            None if track is None else track[sl].to(dev), **kw))
+    lam = torch.cat([p[0].to(home) for p in parts])
+    rows = torch.cat([p[1].to(home) for p in parts])
+    kprimes = [torch.cat([p[2][lvl].to(home) for p in parts])
+               for lvl in range(len(parts[0][2]))]
+    return lam, rows, kprimes
 
 
 def _executor_sharded(d_run, e_run, track, mesh_devices, *, compress_halo,

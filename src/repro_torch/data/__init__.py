@@ -2,7 +2,7 @@
 ``repro.data``; batches are numpy, a pure function of (seed, step,
 shard))."""
 
-from repro_torch.data.pipeline import DataPipeline
+from repro_torch.data.pipeline import DataPipeline, synthetic_batch_specs
 from repro_torch.data.synthetic import SyntheticTokens
 
-__all__ = ["DataPipeline", "SyntheticTokens"]
+__all__ = ["DataPipeline", "SyntheticTokens", "synthetic_batch_specs"]

@@ -1,10 +1,10 @@
 """Host-sharded data pipeline with background prefetch (port copy of
-``repro.data.pipeline``; its dry-run ``synthetic_batch_specs`` is not
-ported: ROADMAP Queue 1 item 5).
+``repro.data.pipeline``), and the dry run's abstract batches
+(``synthetic_batch_specs``).
 
-Each host process owns `host_batch = global_batch / num_hosts` (one
-host and one device in the port: the multi-device trainer is ROADMAP
-Queue 1 item 4).  A background thread keeps
+Each host process owns `host_batch = global_batch / num_shards`; the
+multi-rank trainer draws the global batch on every rank (one shard) and
+keeps its ``batch_sharding`` slice of it.  A background thread keeps
 `prefetch` batches ahead of the training step; batches are a pure function
 of (seed, step, shard) so resume-at-step-k is exact.
 """
@@ -15,7 +15,25 @@ import queue
 import threading
 from typing import Iterator, Optional
 
+import torch
+
 from repro_torch.data.synthetic import SyntheticTokens
+
+
+def synthetic_batch_specs(cfg, shape):
+    """The global batch of a dry-run cell as meta tensors (shapes and
+    dtypes, nothing allocated): int32 tokens and labels (B, S), and
+    bfloat16 ``frames`` (B, encoder_seq_len, d_model) for the
+    encoder-decoder configs."""
+    B, S = shape.global_batch, shape.seq_len
+    specs = {
+        "tokens": torch.empty((B, S), dtype=torch.int32, device="meta"),
+        "labels": torch.empty((B, S), dtype=torch.int32, device="meta"),
+    }
+    if cfg.is_encdec:
+        specs["frames"] = torch.empty((B, cfg.encoder_seq_len, cfg.d_model),
+                                      dtype=torch.bfloat16, device="meta")
+    return specs
 
 
 class DataPipeline:

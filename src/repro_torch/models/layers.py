@@ -142,7 +142,8 @@ def apply_mrope(x, positions3, theta: float, sections: Tuple[int, int, int]):
     freqs = _rope_freqs(x.shape[-1], theta, x.device)             # (half,)
     sec_id = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))               # (half,)
+        torch.as_tensor(sections, device=x.device),
+        output_size=half)                                         # (half,)
     pos = positions3[sec_id]                                      # (half,B,S)
     return _rotate(x, torch.movedim(pos, 0, -1).to(_F32) * freqs)
 
@@ -266,6 +267,33 @@ def _sdpa_chunked(q, k, v, cfg, *, causal: bool):
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
+def _attend(core, q, k, v, *rest):
+    """``core(q, k, v, *rest)`` -- an attention core, independent per
+    sequence and per head group -- on plain tensors, or on each rank's
+    shard of ``DTensor`` q, k, v (batch over the visible data-parallel
+    axes, heads over 'model' where both head counts divide its extent)
+    under ``local_map``: the core's reshapes merge sharded dims, which
+    DTensor's view propagation does not take in every release."""
+    from repro_torch.dist.sharding import _is_dtensor
+    if not _is_dtensor(q):
+        return core(q, k, v, *rest)
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.sharding import (_extent, _visible_dp_axes,
+                                           placements)
+    mesh = q.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    dp = _visible_dp_axes(mesh, q.shape[0])
+    heads = ("model" if "model" in names
+             and q.shape[2] % _extent(mesh, "model") == 0
+             and k.shape[2] % _extent(mesh, "model") == 0 else None)
+    pl = placements((dp, None, heads, None), mesh)
+    ins = (pl, pl, pl) + (None,) * len(rest)
+    return local_map(core, out_placements=list(pl), in_placements=ins,
+                     in_grad_placements=ins, device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, *rest)
+
+
 def _causal_mask(S, device):
     it = torch.arange(S, device=device)
     return (it[None, :, None] >= it[None, None, :])[:, None, None, :, :]
@@ -277,10 +305,13 @@ def attention_forward(p, cfg, x, positions, *, causal=True,
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     if S >= FLASH_THRESHOLD and k.shape[1] % FLASH_KV_CHUNK == 0:
-        out = _sdpa_chunked(q, k, v, cfg, causal=causal)
+        out = _attend(lambda q_, k_, v_: _sdpa_chunked(q_, k_, v_, cfg,
+                                                      causal=causal),
+                      q, k, v)
     else:
         mask = _causal_mask(S, x.device) if causal else None
-        out = _sdpa(q, k, v, mask, cfg)
+        out = _attend(lambda q_, k_, v_: _sdpa(q_, k_, v_, mask, cfg),
+                      q, k, v)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(_ct(cfg)))
     if return_cache:
         return y, {"k": k, "v": v}
@@ -307,7 +338,7 @@ def attention_decode(p, cfg, x, cache, pos):
     S_max = k.shape[1]
     mask = (torch.arange(S_max, device=x.device)[None, :]
             <= pos)[None, None, None, :, :]
-    out = _sdpa(q, k, v, mask, cfg)
+    out = _attend(lambda q_, k_, v_: _sdpa(q_, k_, v_, mask, cfg), q, k, v)
     y = torch.einsum("bshk,hkd->bsd", out, p["wo"].to(_ct(cfg)))
     return y, {"k": k, "v": v}
 
@@ -319,7 +350,8 @@ def init_cross_attention(ini: Init, cfg, lead=()) -> Params:
 def cross_attention(p, cfg, x, kv_cache):
     """Decoder cross-attention against precomputed encoder K/V."""
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(_ct(cfg)))
-    out = _sdpa(q, kv_cache["k"], kv_cache["v"], None, cfg)
+    out = _attend(lambda q_, k_, v_: _sdpa(q_, k_, v_, None, cfg),
+                  q, kv_cache["k"], kv_cache["v"])
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(_ct(cfg)))
 
 
@@ -509,25 +541,32 @@ def moe_route(p, cfg, x):
     logits = torch.einsum("td,de->te", x.reshape(T, -1).to(_F32),
                           p["router"])
     probs = torch.softmax(logits, dim=-1)
-    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
-                                       stable=True)
-    k = cfg.moe_top_k
-    gate_vals, expert_idx = gate_vals[:, :k], expert_idx[:, :k]
-    gate_vals = gate_vals / torch.clamp(torch.sum(gate_vals, -1,
-                                                  keepdim=True), min=1e-9)
+    gate_vals, expert_idx = _top_k(probs, cfg.moe_top_k)
     return probs, gate_vals, expert_idx
 
 
+def _top_k(probs, k: int):
+    """(gate values normalized over the k, expert ids) of the last axis's
+    k largest probabilities, ties to the lower id."""
+    gate_vals, expert_idx = torch.sort(probs, dim=-1, descending=True,
+                                       stable=True)
+    gate_vals, expert_idx = gate_vals[..., :k], expert_idx[..., :k]
+    gate_vals = gate_vals / torch.clamp(torch.sum(gate_vals, -1,
+                                                  keepdim=True), min=1e-9)
+    return gate_vals, expert_idx
+
+
 def moe_capacity(cfg, tokens: int) -> int:
-    """Slots per expert for ``tokens`` routed tokens (a Python int)."""
+    """Slots per expert for ``tokens`` routed tokens of one dispatch
+    group (a Python int)."""
     return int(max(1, round(tokens * cfg.moe_top_k / cfg.moe_num_experts
                             * cfg.moe_capacity_factor)))
 
 
 def moe_dispatch_meta(eid, cap: int):
-    """Sort-based capacity assignment of the flat (T*k,) expert ids:
-    (order, eid_s, slot_c, keep).  Entries sorted stably by expert id take
-    consecutive slots of their expert; those past ``cap`` are dropped
+    """Sort-based capacity assignment of one group's flat (Tg*k,) expert
+    ids: (order, eid_s, slot_c, keep).  Entries sorted stably by expert id
+    take consecutive slots of their expert; those past ``cap`` are dropped
     (``keep`` False, slot ``cap``)."""
     Tk = eid.shape[0]
     order = torch.argsort(eid, stable=True)
@@ -539,19 +578,76 @@ def moe_dispatch_meta(eid, cap: int):
     return order, eid_s, slot_c, keep
 
 
+def moe_group_dispatch(xg, eidg, gvg, cap: int, E: int, k: int):
+    """One dispatch group's sort-based dispatch, the JAX package's
+    ``_moe_group_dispatch``: xg (Tg, D); eidg, gvg (Tg*k,).  Returns (buf
+    (E, cap, D), (eid_s, slot_c, tid_s, gv_s, keep)).  Every index stays
+    inside the group."""
+    order, eid_s, slot_c, keep = moe_dispatch_meta(eidg, cap)
+    gv_s = gvg[order]
+    tid_s = order // k
+    buf = torch.zeros((E, cap + 1, xg.shape[1]), dtype=xg.dtype,
+                      device=xg.device)
+    buf = buf.index_put((eid_s, slot_c), xg[tid_s])[:, :cap]
+    return buf, (eid_s, slot_c, tid_s, gv_s, keep)
+
+
+def moe_group_combine(out, meta, Tg: int, dtype):
+    """One group's combine, the JAX package's ``_moe_group_combine``: the
+    kept slots of ``out`` (E, cap, D), weighted by their gates, added back
+    to their tokens' rows of a (Tg, D) output."""
+    eid_s, slot_c, tid_s, gv_s, keep = meta
+    cap = out.shape[1]
+    y_s = torch.where(keep[:, None],
+                      out[eid_s, torch.clamp(slot_c, max=cap - 1)],
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    y_s = y_s * gv_s[:, None].to(out.dtype)
+    y = torch.zeros((Tg, out.shape[2]), dtype=dtype, device=out.device)
+    return y.index_add(0, tid_s, y_s.to(dtype))
+
+
+def _experts(p, cfg, buf, sub):
+    """The experts' SwiGLU on dispatched slots (``sub`` "ecd" or "gecd")."""
+    ct = _ct(cfg)
+    out = sub.replace("d", "f")
+    g = torch.einsum(f"{sub},edf->{out}", buf, p["w_gate"].to(ct))
+    u = torch.einsum(f"{sub},edf->{out}", buf, p["w_up"].to(ct))
+    return torch.einsum(f"{out},efd->{sub}", F.silu(g) * u,
+                        p["w_down"].to(ct))
+
+
+def moe_groups(T: int) -> int:
+    """Dispatch groups of T tokens: the data-parallel extent visible here
+    (``dist.sharding.dp_axis_extent``), 1 where it does not divide T."""
+    from repro_torch.dist.sharding import dp_axis_extent
+    G = dp_axis_extent()
+    return G if T % G == 0 else 1
+
+
 def moe_forward(p, cfg, x):
-    """Returns (y, aux_loss).  Sort-based capacity dispatch:
+    """Returns (y, aux_loss).  Grouped sort-based capacity dispatch:
 
-      tokens -> top-k experts -> stable sort by expert id -> per-expert
-      contiguous slots (capacity C, overflow dropped) -> batched expert
-      matmuls (E, C, d) -> combine weighted by router gates.
+      tokens -> top-k experts -> per-DP-group stable sort by expert id ->
+      per-expert contiguous slots (capacity C, overflow dropped) ->
+      expert matmuls (G, E, C, d) -> combine weighted by router gates.
 
-    One dispatch group: the JAX package's groups axis is the data-parallel
-    shard count, 1 on one device (the multi-device trainer is ROADMAP
-    Queue 1 item 4)."""
+    The groups axis G is the data-parallel shard count (``moe_groups``, 1
+    on a single device), so every dispatch index stays inside a group.
+    On plain tensors the groups run one after another, each as the
+    one-group form (G = 1 is that form alone).  On ``DTensor``s (the
+    multi-rank trainer) the group axis is sharded over the data-parallel
+    mesh axes and the index work (sort, ``searchsorted``, scatter, gather)
+    runs shard-local under ``local_map`` -- DTensor has no sharding
+    strategy for those ops -- while the router and expert matmuls stay
+    DTensor ops, their collectives inserted by sharding propagation."""
+    from repro_torch.dist.sharding import _is_dtensor
     B, S, D = x.shape
     E, k = cfg.moe_num_experts, cfg.moe_top_k
     T = B * S
+    G = moe_groups(T)
+    if _is_dtensor(x):
+        return _moe_forward_dtensor(p, cfg, x, G if B % G == 0 else 1)
+    Tg = T // G
     probs, gate_vals, expert_idx = moe_route(p, cfg, x)
 
     # Load-balance auxiliary loss (Switch-style).
@@ -559,28 +655,82 @@ def moe_forward(p, cfg, x):
     ce = torch.mean(F.one_hot(expert_idx[:, 0], E).to(_F32), dim=0)
     aux = cfg.router_aux_weight * E * torch.sum(me * ce)
 
-    cap = moe_capacity(cfg, T)
-    order, eid_s, slot_c, keep = moe_dispatch_meta(expert_idx.reshape(-1),
-                                                   cap)
-    gv_s = gate_vals.reshape(-1)[order]
-    tid_s = order // k
-    xf = x.reshape(T, D)
-    buf = torch.zeros((E, cap + 1, D), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((eid_s, slot_c), xf[tid_s])[:, :cap]
-
-    ct = _ct(cfg)
-    g = torch.einsum("ecd,edf->ecf", buf, p["w_gate"].to(ct))
-    u = torch.einsum("ecd,edf->ecf", buf, p["w_up"].to(ct))
-    out = torch.einsum("ecf,efd->ecd", F.silu(g) * u, p["w_down"].to(ct))
-
-    y_s = torch.where(keep[:, None],
-                      out[eid_s, torch.clamp(slot_c, max=cap - 1)],
-                      torch.zeros((), dtype=out.dtype, device=out.device))
-    y_s = y_s * gv_s[:, None].to(out.dtype)
-    y = torch.zeros((T, D), dtype=x.dtype, device=x.device)
-    y = y.index_add(0, tid_s, y_s.to(x.dtype))
+    cap = moe_capacity(cfg, Tg)
+    eid = expert_idx.reshape(G, Tg * k)
+    gv = gate_vals.reshape(G, Tg * k)
+    xf = x.reshape(G, Tg, D)
+    ys = []
+    for g in range(G):
+        buf, meta = moe_group_dispatch(xf[g], eid[g], gv[g], cap, E, k)
+        out = _experts(p, cfg, buf, "ecd")
+        ys.append(moe_group_combine(out, meta, Tg, x.dtype))
+    y = ys[0] if G == 1 else torch.cat(ys)
 
     if cfg.moe_shared_expert:
         y = y + mlp_forward(p["shared"], cfg,
                             x.reshape(1, T, D))[0].to(x.dtype)
     return y.reshape(B, S, D), aux
+
+
+def _moe_forward_dtensor(p, cfg, x, G: int):
+    """:func:`moe_forward` on a ``DTensor`` x, the group axis sharded over
+    the visible data-parallel mesh axes of x's mesh.  Group g is batch
+    rows [g B/G, (g+1) B/G), so G must divide B (the caller makes G 1
+    where it does not, where the JAX package's groups would split a
+    sequence); the reshapes between (B, S, D) and (G, Tg, D) run on each
+    rank's shard."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.sharding import _visible_dp_axes, placements
+    B, S, D = x.shape
+    E, k = cfg.moe_num_experts, cfg.moe_top_k
+    T = B * S
+    Tg = T // G
+    mesh = x.device_mesh
+    grp = placements((_visible_dp_axes(mesh, G),), mesh)
+
+    def lmap(fn, n_out, n_in):
+        return local_map(fn, out_placements=list(grp) if n_out == 1
+                         else (grp,) * n_out,
+                         in_placements=(grp,) * n_in,
+                         in_grad_placements=(grp,) * n_in,
+                         device_mesh=mesh, redistribute_inputs=True)
+
+    xf = lmap(lambda xl: xl.reshape(-1, Tg, D), 1, 1)(x)
+    logits = torch.einsum("gtd,de->gte", xf.to(_F32), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+
+    def route(pr):
+        gate_vals, expert_idx = _top_k(pr, k)
+        top1 = F.one_hot(expert_idx[..., 0], E).to(_F32)
+        return (gate_vals.reshape(pr.shape[0], -1),
+                expert_idx.reshape(pr.shape[0], -1), top1)
+
+    gv, eid, top1 = lmap(route, 3, 1)(probs)
+    me = torch.mean(probs, dim=(0, 1))
+    ce = torch.mean(top1, dim=(0, 1))
+    aux = cfg.router_aux_weight * E * torch.sum(me * ce)
+
+    cap = moe_capacity(cfg, Tg)
+
+    def dispatch(xl, el, gl):
+        parts = [moe_group_dispatch(xl[g], el[g], gl[g], cap, E, k)
+                 for g in range(xl.shape[0])]
+        stack = [torch.stack([pt[0] for pt in parts])]
+        for i in range(5):
+            stack.append(torch.stack([pt[1][i] for pt in parts]))
+        return tuple(stack)
+
+    buf, *meta = lmap(dispatch, 6, 3)(xf, eid, gv)
+    out = _experts(p, cfg, buf, "gecd")
+
+    def combine(ol, *ml):
+        y = torch.stack([moe_group_combine(ol[g], [m[g] for m in ml],
+                                           Tg, x.dtype)
+                         for g in range(ol.shape[0])])
+        return y.reshape(-1, S, D)
+
+    y = lmap(combine, 1, 6)(out, *meta)
+    if cfg.moe_shared_expert:
+        y = y + mlp_forward(p["shared"], cfg, x).to(x.dtype)
+    return y, aux

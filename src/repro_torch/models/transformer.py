@@ -16,8 +16,10 @@ Where the JAX package runs ``lax.scan`` over a stacked layer tree, the
 port unbinds the stack once (one ``unbind`` per leaf, so the backward
 pass stacks the layers' gradients in one op) and loops in Python;
 ``remat`` wraps each loop body in ``torch.utils.checkpoint`` (non-
-reentrant), the JAX package's ``jax.checkpoint``.  Its sharding
-constraints do nothing on one device and are left out.
+reentrant), the JAX package's ``jax.checkpoint``.  The activation
+constraints sit where the JAX package's do (``dist.sharding``): they
+return a plain tensor untouched, and on the multi-rank trainer's
+``DTensor``s pin the batch (or sequence) layout between blocks.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.tune import resolve_device
+from repro_torch.dist.sharding import (_is_dtensor, constrain_batch_acts,
+                                       constrain_gathered_acts,
+                                       constrain_seq_model_acts,
+                                       gather_params, model_axis_extent)
 from repro_torch.models import layers as nn
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -163,17 +169,27 @@ def param_count(params) -> int:
 # Block bodies
 # ---------------------------------------------------------------------------
 
+def _pin_block_input(cfg, x):
+    """Heads that don't divide the TP extent would replicate the score
+    tensor across 'model'; fall back to sequence parallelism instead."""
+    if cfg.num_heads % max(model_axis_extent(), 1) != 0:
+        return constrain_seq_model_acts(x)
+    return constrain_batch_acts(x)
+
+
 def _attn_block(p, cfg, x, positions, enc_kv=None, causal=True):
-    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    p = gather_params(p)
+    x = _pin_block_input(cfg, x)
+    h = constrain_gathered_acts(nn.rmsnorm(p["ln1"], x, cfg.norm_eps))
     if cfg.attention == "mla":
         h = nn.mla_forward(p["attn"], cfg, h, positions, causal=causal)
     else:
         h = nn.attention_forward(p["attn"], cfg, h, positions, causal=causal)
     x = x + h
     if enc_kv is not None:
-        h = nn.rmsnorm(p["ln_x"], x, cfg.norm_eps)
+        h = constrain_gathered_acts(nn.rmsnorm(p["ln_x"], x, cfg.norm_eps))
         x = x + nn.cross_attention(p["xattn"], cfg, h, enc_kv)
-    h = nn.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    h = constrain_gathered_acts(nn.rmsnorm(p["ln2"], x, cfg.norm_eps))
     aux = _zero(x.device)
     if "moe" in p:
         h, aux = nn.moe_forward(p["moe"], cfg, h)
@@ -183,20 +199,129 @@ def _attn_block(p, cfg, x, positions, enc_kv=None, causal=True):
 
 
 def _ssm_block(p, cfg, x):
-    h = nn.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    return x + ssm_mod.mamba2_forward(p["mixer"], cfg, h)
+    p = gather_params(p)
+    x = constrain_batch_acts(x)
+    h = constrain_gathered_acts(nn.rmsnorm(p["ln1"], x, cfg.norm_eps))
+    return x + _batch_local(
+        lambda mp, hh: ssm_mod.mamba2_forward(mp, cfg, hh), p["mixer"], h)
 
 
 # ---------------------------------------------------------------------------
 # Training / full-sequence forward
 # ---------------------------------------------------------------------------
 
+def _batch_local(fn, params, *acts):
+    """``fn(params, *acts)`` -- the Mamba2 mixer, whose chunk scan's
+    reshapes, cumulative sums and segment sums have no DTensor sharding
+    strategy -- on plain tensors, or on each rank's batch shard of
+    ``DTensor`` activations under ``local_map``: the parameters gathered
+    whole on every rank (no tensor parallelism inside the mixer), their
+    gradients summed over the data-parallel ranks; every activation,
+    state and cache leaf batch-first and sharded over the visible
+    data-parallel axes."""
+    from repro_torch.dist.sharding import _visible_dp_axes, placements
+    first = acts[0]
+    if not _is_dtensor(first):
+        return fn(params, *acts)
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+    from torch.utils._pytree import tree_flatten, tree_map as pt_map
+
+    mesh = first.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    dp = _visible_dp_axes(mesh, first.shape[0])
+    dp_names = dp if isinstance(dp, tuple) else ((dp,) if dp else ())
+    rep = tuple(Replicate() for _ in names)
+    grad = tuple(Partial() if n in dp_names else Replicate() for n in names)
+
+    def batch(x):
+        return placements((dp,) + (None,) * (x.ndim - 1), mesh)
+
+    # The output structure, from a run on meta tensors of local shapes.
+    ext = 1
+    for name in dp_names:
+        ext *= mesh.size(names.index(name))
+
+    def meta(x, batch_first=False):
+        shape = list(x.shape)
+        if batch_first:
+            shape[0] //= ext
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+    probe = fn(pt_map(meta, params),
+               *pt_map(lambda x: meta(x, True), acts))
+    flat_out, _ = tree_flatten(probe)
+
+    flat_p, _ = tree_flatten(params)
+    flat_a, _ = tree_flatten(acts)
+    ins = [rep] * len(flat_p) + [batch(a) for a in flat_a]
+    grads = [grad] * len(flat_p) + [batch(a) for a in flat_a]
+    outs = [batch(o) for o in flat_out]
+    return local_map(fn, out_placements=tuple(outs) if len(outs) > 1
+                     else list(outs[0]), in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh,
+                     redistribute_inputs=True)(params, *acts)
+
+
 def _embed(params, cfg, tokens):
-    return params["embed"].to(_ct(cfg))[tokens]
+    table = params["embed"].to(_ct(cfg))
+    if _is_dtensor(table):
+        return constrain_batch_acts(_lookup_sharded(table, tokens))
+    return constrain_batch_acts(table[tokens])
+
+
+def _lookup_sharded(table, tokens):
+    """``table[tokens]`` for a ``DTensor`` table (V, D), each rank looking
+    up its own vocabulary slice (over 'model' where it divides; the table
+    gathered over the other axes): a rank whose slice lacks a token adds
+    0, so the rows are a partial sum over 'model'.  The table's gradient
+    comes back summed over the data-parallel ranks.  (DTensor's
+    strategies for indexing's backward and for embedding's masked partial
+    sum do not hold in every release.)"""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.sharding import (_extent, _visible_dp_axes,
+                                           placements)
+    mesh = table.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    dp = _visible_dp_axes(mesh, tokens.shape[0])
+    dp_names = dp if isinstance(dp, tuple) else ((dp,) if dp else ())
+    vocab = ("model" if "model" in names
+             and table.shape[0] % _extent(mesh, "model") == 0 else None)
+    tp = placements((vocab, None), mesh)
+    bp = placements((dp, None), mesh)
+    grad, out = [], []
+    for name in names:
+        if name == vocab:
+            grad.append(Shard(0))
+            out.append(Partial())
+        elif name in dp_names:
+            grad.append(Partial())
+            out.append(Shard(0))
+        else:
+            grad.append(Replicate())
+            out.append(Replicate())
+
+    def lookup(tl, tok):
+        rows = tl.shape[0]
+        v0 = mesh.get_local_rank("model") * rows if vocab else 0
+        idx = tok.long() - v0
+        ok = (idx >= 0) & (idx < rows)
+        got = tl[idx.clamp(0, rows - 1)]
+        return torch.where(ok[..., None], got,
+                           torch.zeros((), dtype=got.dtype, device=got.device))
+
+    return local_map(lookup, out_placements=out, in_placements=(tp, bp),
+                     in_grad_placements=(tuple(grad), bp), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
 
 
 def _unembed(params, cfg, x):
-    x = nn.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    params = {k: gather_params(params[k]) for k in
+              ("final_norm", "head", "embed") if k in params}
+    x = constrain_batch_acts(x)
+    x = constrain_gathered_acts(
+        nn.rmsnorm(params["final_norm"], x, cfg.norm_eps))
     w = params.get("head", None)
     if w is None:
         w = params["embed"].to(_ct(cfg)).T
@@ -219,11 +344,14 @@ def _encode(params, cfg, frames):
     zeros = torch.zeros(x.shape[:2], dtype=torch.int32, device=x.device)
     enc = params["enc_layers"]
     for lp in _unstack(enc, _layer_count(enc)):
-        h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        lp = gather_params(lp)
+        x = _pin_block_input(cfg, x)
+        h = constrain_gathered_acts(nn.rmsnorm(lp["ln1"], x, cfg.norm_eps))
         x = x + nn.attention_forward(lp["attn"], cfg, h, zeros, causal=False)
-        h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        h = constrain_gathered_acts(nn.rmsnorm(lp["ln2"], x, cfg.norm_eps))
         x = x + nn.mlp_forward(lp["mlp"], cfg, h)
-    return nn.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    return constrain_gathered_acts(
+        nn.rmsnorm(params["enc_norm"], x, cfg.norm_eps))
 
 
 def forward(params, cfg: ModelConfig, tokens, *, encoder_input=None,
@@ -268,6 +396,7 @@ def forward(params, cfg: ModelConfig, tokens, *, encoder_input=None,
         x = x + pos_dec[None].to(x.dtype)
 
     def body(x, lp):
+        lp = gather_params(lp)
         kv = (nn.encoder_kv(lp["xattn"], cfg, enc_out)
               if enc_out is not None else None)
         return _attn_block(lp, cfg, x, positions, enc_kv=kv)
@@ -284,17 +413,60 @@ def loss_fn(params, cfg: ModelConfig, batch, *, remat: bool = False):
     The gold logit is picked by indexing, not by the JAX package's one-hot
     contraction (the same value for finite logits): at full width a
     one-hot would be another B x S x V tensor.  Indexing's backward is an
-    accumulating ``index_put``, which has a deterministic CUDA kernel."""
+    accumulating ``index_put``, which has a deterministic CUDA kernel.
+    On ``DTensor`` logits the pick runs on each rank's shard
+    (``_gold_sharded``)."""
     logits, aux = forward(params, cfg, batch["tokens"],
                           encoder_input=batch.get("frames"), remat=remat)
     labels = batch["labels"]
     logits = logits.to(_F32)
     lse = torch.logsumexp(logits, dim=-1)
-    flat = logits.reshape(-1, logits.shape[-1])
-    rows = torch.arange(flat.shape[0], device=flat.device)
-    gold = flat[rows, labels.reshape(-1).long()].reshape(labels.shape)
+    if _is_dtensor(logits):
+        gold = _gold_sharded(logits, labels)
+    else:
+        flat = logits.reshape(-1, logits.shape[-1])
+        rows = torch.arange(flat.shape[0], device=flat.device)
+        gold = flat[rows, labels.reshape(-1).long()].reshape(labels.shape)
     ce = torch.mean(lse - gold)
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _gold_sharded(logits, labels):
+    """The gold logits of ``DTensor`` logits (B, S, V), each rank picking
+    from its own shard: batch over the visible data-parallel axes, the
+    vocabulary over 'model' where it divides.  A rank whose vocabulary
+    slice lacks a label contributes 0, so the result is a partial sum over
+    'model'.  (Indexing the whole DTensor would replicate the logits of
+    the global batch on every rank: DTensor has no sharding strategy for
+    that gather.)"""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.sharding import (_extent, _visible_dp_axes,
+                                           placements)
+    mesh = logits.device_mesh
+    names = tuple(mesh.mesh_dim_names)
+    dp = _visible_dp_axes(mesh, logits.shape[0])
+    vocab = ("model" if "model" in names
+             and logits.shape[-1] % _extent(mesh, "model") == 0 else None)
+    lp = placements((dp, None, vocab), mesh)
+    bp = placements((dp, None), mesh)
+    out = list(bp)
+    if vocab is not None:
+        out[names.index("model")] = Partial()
+
+    def pick(lg, lb):
+        width = lg.shape[-1]
+        v0 = mesh.get_local_rank("model") * width if vocab else 0
+        idx = lb.long() - v0
+        ok = (idx >= 0) & (idx < width)
+        g = torch.gather(lg, -1, idx.clamp(0, width - 1)[..., None])[..., 0]
+        return torch.where(ok, g, torch.zeros((), dtype=g.dtype,
+                                              device=g.device))
+
+    return local_map(pick, out_placements=out, in_placements=(lp, bp),
+                     in_grad_placements=(lp, bp), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -339,6 +511,8 @@ def init_cache(params, cfg: ModelConfig, batch: int, max_seq: int):
 
 
 def _decode_attn_block(lp, cfg, x, cache, pos, enc_kv=None):
+    lp = gather_params(lp)
+    x = constrain_batch_acts(x)
     h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if cfg.attention == "mla":
         h, cache = nn.mla_decode(lp["attn"], cfg, h, cache, pos)
@@ -357,8 +531,11 @@ def _decode_attn_block(lp, cfg, x, cache, pos, enc_kv=None):
 
 
 def _mamba_decode_block(lp, cfg, x, cache):
+    lp = gather_params(lp)
     h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    h, cache = ssm_mod.mamba2_decode(lp["mixer"], cfg, h, cache)
+    h, cache = _batch_local(
+        lambda mp, hh, cc: ssm_mod.mamba2_decode(mp, cfg, hh, cc),
+        lp["mixer"], h, cache)
     return x + h, cache
 
 
@@ -432,6 +609,11 @@ def _pad_cache(c, B, max_seq):
     ...) buffer."""
     out = {}
     for key, v in c.items():
+        if _is_dtensor(v):    # out of place: a DTensor takes no slice write
+            pad = torch.zeros((B, max_seq - v.shape[1]) + tuple(v.shape[2:]),
+                              dtype=v.dtype, device=v.device)
+            out[key] = torch.cat([v, pad], dim=1)
+            continue
         buf = torch.zeros((B, max_seq) + tuple(v.shape[2:]), dtype=v.dtype,
                           device=v.device)
         buf[:, :v.shape[1]] = v
@@ -447,8 +629,12 @@ def prefill(params, cfg: ModelConfig, tokens, max_seq: int, *,
     positions = _positions(B, S, x.device)
 
     def mamba(lp, x):
+        lp = gather_params(lp)
         h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        h, c = ssm_mod.mamba2_forward(lp["mixer"], cfg, h, return_state=True)
+        h, c = _batch_local(
+            lambda mp, hh: ssm_mod.mamba2_forward(mp, cfg, hh,
+                                                  return_state=True),
+            lp["mixer"], h)
         return x + h, c
 
     if cfg.family == "ssm":
@@ -460,7 +646,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_seq: int, *,
 
     if cfg.family == "hybrid":
         groups, per_group, tail = _hybrid_counts(cfg)
-        shared = params["shared_attn"]
+        shared = gather_params(params["shared_attn"])
         layers = _unstack(params["layers"], groups * per_group)
         new_m, new_s = [], []
         for g in range(groups):
@@ -492,7 +678,9 @@ def prefill(params, cfg: ModelConfig, tokens, max_seq: int, *,
 
     self_c, cross_c = [], []
     for lp in _unstack(params["layers"], cfg.num_layers):
-        h = nn.rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        lp = gather_params(lp)
+        x = _pin_block_input(cfg, x)
+        h = constrain_gathered_acts(nn.rmsnorm(lp["ln1"], x, cfg.norm_eps))
         if cfg.attention == "mla":
             h, c = nn.mla_forward(lp["attn"], cfg, h, positions,
                                   return_cache=True)
@@ -505,7 +693,7 @@ def prefill(params, cfg: ModelConfig, tokens, max_seq: int, *,
             xkv = nn.encoder_kv(lp["xattn"], cfg, enc_out)
             x = x + nn.cross_attention(lp["xattn"], cfg, hh, xkv)
             cross_c.append(xkv)
-        h = nn.rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        h = constrain_gathered_acts(nn.rmsnorm(lp["ln2"], x, cfg.norm_eps))
         if "moe" in lp:
             h, _ = nn.moe_forward(lp["moe"], cfg, h)
         else:
