@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import guard as _guard
-from repro_torch.core.instrument import SolveCounter
+from repro_torch.core.instrument import SolveCounter, span
 from repro_torch.core.tune import (backend_defaults, bisect_depth,
                                    resolve_device)
 
@@ -223,40 +223,49 @@ def _slice_targets(d, e, targets, *, maxiter: int = DEFAULT_MAX_BISECT,
     safeguarded Newton polish follows.  Returns (B, k) eigenvalues.
     """
     from repro_torch.kernels import ops as _ops  # deferred: ops imports us
-    dtype = d.dtype
-    e2 = e * e
-    pivmin = _pivot_floor(e2)                         # (B, 1)
-    glo, ghi = _gershgorin(d, e.abs(), pivmin)
-    scale = torch.maximum(glo.abs(), ghi.abs())       # ~ ||T||
-    tol = (2.0 * torch.finfo(dtype).eps
-           * scale.clamp(min=torch.finfo(dtype).tiny) + 2.0 * pivmin)
+    with span("repro.sturm.bisect"):
+        dtype = d.dtype
+        e2 = e * e
+        pivmin = _pivot_floor(e2)                         # (B, 1)
+        glo, ghi = _gershgorin(d, e.abs(), pivmin)
+        scale = torch.maximum(glo.abs(), ghi.abs())       # ~ ||T||
+        tol = (2.0 * torch.finfo(dtype).eps
+               * scale.clamp(min=torch.finfo(dtype).tiny) + 2.0 * pivmin)
 
-    B, k = targets.shape
-    depth = bisect_depth(B * k, backend_defaults(
-        d.device.type)["bisect_chains"])
-    lo = glo.expand(B, k)
-    hi = ghi.expand(B, k)
-    it = 0
-    while it < maxiter and bool(((hi - lo) > tol).any()):
-        for _ in range(-(-_CHECK_EVERY // depth)):
-            if it == maxiter:
-                break
-            steps = min(depth, maxiter - it)
-            lo, hi, _ = _ops.bisect_tree_batched(d, e2, pivmin, tol, targets,
-                                                 lo, hi, depth=depth,
-                                                 steps=steps)
-            it += steps
-    x = 0.5 * (lo + hi)
+        B, k = targets.shape
+        depth = bisect_depth(B * k, backend_defaults(
+            d.device.type)["bisect_chains"])
+        lo = glo.expand(B, k)
+        hi = ghi.expand(B, k)
+        it = 0
+        while it < maxiter and _unconverged(lo, hi, tol):
+            for _ in range(-(-_CHECK_EVERY // depth)):
+                if it == maxiter:
+                    break
+                steps = min(depth, maxiter - it)
+                lo, hi, _ = _ops.bisect_tree_batched(
+                    d, e2, pivmin, tol, targets, lo, hi, depth=depth,
+                    steps=steps)
+                it += steps
+        x = 0.5 * (lo + hi)
 
-    for _ in range(polish):
-        cnt, s = _ops.count_and_newton_batched(d, e2, x, pivmin)
-        above = cnt > targets
-        hi = torch.where(above, x, hi)
-        lo = torch.where(above, lo, x)
-        cand = x - 1.0 / s
-        inb = torch.isfinite(cand) & (cand > lo) & (cand < hi)
-        x = torch.where(inb, cand, 0.5 * (lo + hi))
+    with span("repro.sturm.polish"):
+        for _ in range(polish):
+            cnt, s = _ops.count_and_newton_batched(d, e2, x, pivmin)
+            above = cnt > targets
+            hi = torch.where(above, x, hi)
+            lo = torch.where(above, lo, x)
+            cand = x - 1.0 / s
+            inb = torch.isfinite(cand) & (cand > lo) & (cand < hi)
+            x = torch.where(inb, cand, 0.5 * (lo + hi))
     return x
+
+
+def _unconverged(lo, hi, tol) -> bool:
+    """The bisection loop's convergence check: is any bracket still wider
+    than its tolerance?  One blocking device-to-host read."""
+    with span("repro.sync"):
+        return bool(((hi - lo) > tol).any())
 
 
 def sturm_count(d, e, shifts, *, device=None):

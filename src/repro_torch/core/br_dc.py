@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import merge as _merge
-from repro_torch.core.instrument import SolveCounter
+from repro_torch.core.instrument import SolveCounter, span
 from repro_torch.dist import sharding as _dist
 
 # Device-solve instrumentation: one increment per executor launch (a batch
@@ -162,20 +162,21 @@ def _br_dc_padded_batch(d_pad, e_pad, track, *, leaf, chunk, niter, use_zhat,
     L = int(math.log2(N // leaf))
     nb = N // leaf
 
-    # Pre-subtract every rank-one coupling from the boundary diagonals
-    # (each interior leaf boundary is split exactly once in the tree).
-    if nb > 1:
-        k = leaf * torch.arange(1, nb, device=d_pad.device)
-        rho_all = e_pad[:, k - 1].abs()
-        sub = torch.zeros_like(d_pad)
-        sub[:, k - 1] += rho_all
-        sub[:, k] += rho_all
-        d_adj = d_pad - sub
-    else:
-        d_adj = d_pad
+    with span("repro.leaf"):
+        # Pre-subtract every rank-one coupling from the boundary diagonals
+        # (each interior leaf boundary is split exactly once in the tree).
+        if nb > 1:
+            k = leaf * torch.arange(1, nb, device=d_pad.device)
+            rho_all = e_pad[:, k - 1].abs()
+            sub = torch.zeros_like(d_pad)
+            sub[:, k - 1] += rho_all
+            sub[:, k] += rho_all
+            d_adj = d_pad - sub
+        else:
+            d_adj = d_pad
 
-    track_local = None if track is None else track % leaf
-    lam, rows = _leaf_solve(d_adj, e_pad, leaf, track_local=track_local)
+        track_local = None if track is None else track % leaf
+        lam, rows = _leaf_solve(d_adj, e_pad, leaf, track_local=track_local)
     lam, rows, kprimes = _subtree_levels(
         lam, rows, e_pad, track, leaf, L, root_at_top=not return_boundary,
         niter=niter, chunk=chunk, use_zhat=use_zhat, tol_factor=tol_factor,
@@ -192,13 +193,14 @@ def _subtree_levels(lam, rows, e_pad, track, leaf, levels, *, root_at_top,
     root mode if ``root_at_top``.  Returns (lam, rows, kprimes)."""
     kprimes = []
     for level in range(levels):
-        nm = lam.shape[1] // 2
-        M = lam.shape[2]
-        rho, sgn = _level_coupling(e_pad, level, leaf, nm)   # (B, nm)
-        lam_pairs, z_inner, R = _level_pairs(lam, rows, track, M)
-        res = _merge.merge_level_batched(
-            lam_pairs, z_inner, R, rho, sgn,
-            root_mode=root_at_top and nm == 1, **merge_kw)
+        with span("repro.level"):
+            nm = lam.shape[1] // 2
+            M = lam.shape[2]
+            rho, sgn = _level_coupling(e_pad, level, leaf, nm)   # (B, nm)
+            lam_pairs, z_inner, R = _level_pairs(lam, rows, track, M)
+            res = _merge.merge_level_batched(
+                lam_pairs, z_inner, R, rho, sgn,
+                root_mode=root_at_top and nm == 1, **merge_kw)
         lam, rows = res.lam, res.rows
         kprimes.append(res.kprime)
     return lam, rows, kprimes

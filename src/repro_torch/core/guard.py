@@ -20,7 +20,7 @@ import math
 
 import numpy as np
 
-from repro_torch.core.instrument import SolveCounter
+from repro_torch.core.instrument import SolveCounter, span
 
 
 class InvalidInputError(ValueError):
@@ -73,7 +73,9 @@ def _check_finite(arr, name: str) -> None:
     (the pass path is one reduction, no per-element work)."""
     if _is_torch_tensor(arr):
         import torch
-        if bool(torch.isfinite(arr).all()):
+        with span("repro.sync"):
+            finite = bool(torch.isfinite(arr).all())
+        if finite:
             return
     elif np.isfinite(np.asarray(arr)).all():
         return
@@ -155,8 +157,12 @@ def equilibrate(d, e):
     In-range problems come back untouched with ``scale == 1.0``.
     """
     if _is_torch_tensor(d):
-        dmax = float(d.abs().max())
-        emax = float(e.abs().max()) if e.shape[-1] else 0.0
+        with span("repro.sync"):
+            dmax = float(d.abs().max())
+        emax = 0.0
+        if e.shape[-1]:
+            with span("repro.sync"):
+                emax = float(e.abs().max())
     else:
         dmax = float(np.max(np.abs(d)))
         emax = float(np.max(np.abs(e))) if np.shape(e)[-1] else 0.0

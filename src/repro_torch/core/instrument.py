@@ -31,12 +31,36 @@ tridiagonal, submit -> result).  Like the degradation gauge it is
 ungated and bounded: probes are rare (one per governor period) and each
 latency is the number the <10% monitor-overhead budget is audited
 against.
+
+**Spans** (:func:`span`) mark the solve path's layer boundaries as
+``torch.profiler.record_function`` ranges named ``repro.*``, so a
+running profiler writes them into its trace on the clock of the device
+activity they launch: ``repro.solve`` (a request), ``repro.front_door``,
+``repro.stage``, ``repro.leaf``, ``repro.level``, ``repro.merge.head``,
+``repro.merge.conquer``, ``repro.sturm.bisect``, ``repro.sturm.polish``,
+``repro.finalize``, and ``repro.sync`` around each blocking
+device-to-host read of the front door, the deflation head, the
+bisection loop's convergence check and the finalizer.  The profiler is
+the switch and the exporter: with none running a span costs one C call.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
+
+import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that records ``name`` as a profiler range while
+    a ``torch.profiler`` profile is running, and one shared no-op
+    otherwise (nothing is allocated on the untraced path)."""
+    if not torch.autograd._profiler_enabled():
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 class LatencyRecorder:

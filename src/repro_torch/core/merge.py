@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.core import secular as _sec
 from repro_torch.core import tune as _tune
+from repro_torch.core.instrument import span
 from repro_torch.dist import sharding as _dist
 from repro_torch.kernels import ops as _ops
 
@@ -261,11 +262,14 @@ def _deflate_head(d, z, R, small, tol, *, budget: int):
         return _close_pole_scan(d, z, R, small, tol)
     cand, pk = _deflate_candidates(d, z, small, tol)
     count = cand.sum(dim=1)
-    cmax = int(count.max())                                  # host sync 1
+    with span("repro.sync"):
+        cmax = int(count.max())                              # host sync 1
     d1, z1, R1, defl1 = _deflate_apply(d, z, R, small, tol, pk, cand, count,
                                        steps=cmax)
     missed = _deflate_missed(d, z, d1, z1, small, tol, pk, cand)
-    if bool(missed.any()):                                   # host sync 2
+    with span("repro.sync"):
+        missed = bool(missed.any())                          # host sync 2
+    if missed:
         return _close_pole_scan(d, z, R, small, tol)
     return d1, z1, R1, defl1
 
@@ -397,25 +401,27 @@ def merge_level(lam_pairs, z_inner, R, rho, sgn, *,
     dense = not two_pass and K <= stream_threshold
     dtype = lam_pairs.dtype
 
-    d, z, Rp, kprime, rho_eff = _merge_head(lam_pairs, z_inner, R, rho, sgn,
-                                            tol_factor=tol_factor,
-                                            deflate_budget=deflate_budget)
+    with span("repro.merge.head"):
+        d, z, Rp, kprime, rho_eff = _merge_head(
+            lam_pairs, z_inner, R, rho, sgn, tol_factor=tol_factor,
+            deflate_budget=deflate_budget)
 
-    # ---- single-dispatch resident merge (small K, solve + post-pass) ---
-    if not two_pass and not root_mode and K <= resident_threshold:
-        origin, tau, _, rows = _ops.secular_merge_resident_batched(
-            d, z, Rp, rho_eff, kprime, niter=niter, use_zhat=use_zhat)
-        lam = torch.gather(d, 1, origin.long()) + tau
-        lam, rows = _sort_lanes(lam, rows)
-        return MergeResult(lam.to(dtype), rows, kprime, rho_eff)
+    with span("repro.merge.conquer"):
+        # ---- single-dispatch resident merge (small K, solve + post-pass)
+        if not two_pass and not root_mode and K <= resident_threshold:
+            origin, tau, _, rows = _ops.secular_merge_resident_batched(
+                d, z, Rp, rho_eff, kprime, niter=niter, use_zhat=use_zhat)
+            lam = torch.gather(d, 1, origin.long()) + tau
+            lam, rows = _sort_lanes(lam, rows)
+            return MergeResult(lam.to(dtype), rows, kprime, rho_eff)
 
-    # ---- secular root solve (compact delta representation, batched) ---
-    origin, tau = _ops.secular_solve_batched(
-        d, z * z, rho_eff, kprime, niter=niter, chunk=chunk, dense=dense)
-    return _merge_tail(d, z, Rp, kprime, rho_eff, origin, tau,
-                       root_mode=root_mode, two_pass=two_pass,
-                       use_zhat=use_zhat, chunk=chunk, dense=dense,
-                       dtype=dtype)
+        # ---- secular root solve (compact delta representation, batched)
+        origin, tau = _ops.secular_solve_batched(
+            d, z * z, rho_eff, kprime, niter=niter, chunk=chunk, dense=dense)
+        return _merge_tail(d, z, Rp, kprime, rho_eff, origin, tau,
+                           root_mode=root_mode, two_pass=two_pass,
+                           use_zhat=use_zhat, chunk=chunk, dense=dense,
+                           dtype=dtype)
 
 
 def _merge_tail(d, z, Rp, kprime, rho_eff, origin, tau, *, root_mode,

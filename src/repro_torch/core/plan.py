@@ -44,7 +44,7 @@ from repro_torch.core import guard as _guard
 from repro_torch.core import merge as _merge
 from repro_torch.core import secular as _sec
 from repro_torch.core import tune as _tune
-from repro_torch.core.instrument import SolveCounter
+from repro_torch.core.instrument import SolveCounter, span
 from repro_torch.core.tune import resolve_device  # noqa: F401 (re-export)
 from repro_torch.dist.sharding import per_device
 from repro_torch.launch.mesh import SolverMesh, visible_devices
@@ -355,62 +355,64 @@ class SolvePlan:
         rides the tracked selected-row slot.  Eigenvalues come back
         (B, n); rows of host-padded problems keep the common width.
         """
-        key = self.key
-        dev = self.device
-        dtype = _torch_dtype(key.dtype)
-        d, e = _br._as_batch(d, e, dtype, dev)
-        B, n = d.shape
-        Bb = key.batch_bucket
-        if B > Bb:
-            raise ValueError(
-                f"batch {B} exceeds plan bucket {Bb}; make a bigger plan")
-        if _br._tree_shape(n, key.leaf)[0] != key.padded_n:
-            raise ValueError(
-                f"n={n} pads to {_br._tree_shape(n, key.leaf)[0]}, but this "
-                f"plan was built for padded N={key.padded_n}")
-        if orig_n is not None:
-            orig_n = torch.as_tensor(orig_n, dtype=torch.int64, device=dev)
-            if tuple(orig_n.shape) != (B,):
+        with span("repro.stage"):
+            key = self.key
+            dev = self.device
+            dtype = _torch_dtype(key.dtype)
+            d, e = _br._as_batch(d, e, dtype, dev)
+            B, n = d.shape
+            Bb = key.batch_bucket
+            if B > Bb:
                 raise ValueError(
-                    f"orig_n must have shape ({B},), got "
-                    f"{tuple(orig_n.shape)}")
+                    f"batch {B} exceeds plan bucket {Bb}; make a bigger plan")
+            if _br._tree_shape(n, key.leaf)[0] != key.padded_n:
+                raise ValueError(
+                    f"n={n} pads to {_br._tree_shape(n, key.leaf)[0]}, but "
+                    f"this plan was built for padded N={key.padded_n}")
+            if orig_n is not None:
+                orig_n = torch.as_tensor(orig_n, dtype=torch.int64, device=dev)
+                if tuple(orig_n.shape) != (B,):
+                    raise ValueError(
+                        f"orig_n must have shape ({B},), got "
+                        f"{tuple(orig_n.shape)}")
 
-        if B < Bb:
-            # Dummy problems: zero diagonals decouple exactly and cost one
-            # deflated pass-through per merge; sliced off below.
-            d = torch.cat([d, torch.zeros((Bb - B, n), dtype=dtype,
-                                          device=dev)])
-            e = torch.cat([e, torch.zeros((Bb - B, max(n - 1, 0)),
-                                          dtype=dtype, device=dev)])
+            if B < Bb:
+                # Dummy problems: zero diagonals decouple exactly and cost one
+                # deflated pass-through per merge; sliced off below.
+                d = torch.cat([d, torch.zeros((Bb - B, n), dtype=dtype,
+                                              device=dev)])
+                e = torch.cat([e, torch.zeros((Bb - B, max(n - 1, 0)),
+                                              dtype=dtype, device=dev)])
 
-        d_pad, e_pad, N, L = _br._pad_problem(d, e, key.leaf)
-        # The tracked third row is only needed when padding appends
-        # sentinel rows below row n-1 (or per-problem sizes differ).
-        if key.return_boundary and orig_n is not None:
-            track = torch.cat([orig_n - 1, torch.full(
-                (Bb - B,), n - 1, dtype=torch.int64, device=dev)])
-        elif key.return_boundary and n != N:
-            track = torch.full((Bb,), n - 1, dtype=torch.int64, device=dev)
-        else:
-            track = None
+            d_pad, e_pad, N, L = _br._pad_problem(d, e, key.leaf)
+            # The tracked third row is only needed when padding appends
+            # sentinel rows below row n-1 (or per-problem sizes differ).
+            if key.return_boundary and orig_n is not None:
+                track = torch.cat([orig_n - 1, torch.full(
+                    (Bb - B,), n - 1, dtype=torch.int64, device=dev)])
+            elif key.return_boundary and n != N:
+                track = torch.full((Bb,), n - 1, dtype=torch.int64, device=dev)
+            else:
+                track = None
 
-        if key.precision == "mixed":
-            # The whole tree runs in float32; the float64 (d_pad, e_pad)
-            # stay behind for the Sturm certification / polish below.
-            d_run, e_run = d_pad.to(torch.float32), e_pad.to(torch.float32)
-        else:
-            d_run, e_run = d_pad, e_pad
+            if key.precision == "mixed":
+                # The whole tree runs in float32; the float64 (d_pad, e_pad)
+                # stay behind for the Sturm certification / polish below.
+                d_run, e_run = d_pad.to(torch.float32), e_pad.to(torch.float32)
+            else:
+                d_run, e_run = d_pad, e_pad
 
-        # Chaos-harness hook: a scheduled launch fault raises here, after
-        # input staging and before the tree runs.
-        _faults.inject("plan.launch")
+            # Chaos-harness hook: a scheduled launch fault raises here, after
+            # input staging and before the tree runs.
+            _faults.inject("plan.launch")
 
-        tree_kw = dict(
-            leaf=key.leaf, chunk=key.chunk, niter=key.niter,
-            use_zhat=key.use_zhat, return_boundary=key.return_boundary,
-            tol_factor=key.tol_factor, stream_threshold=key.stream_threshold,
-            deflate_budget=key.deflate_budget,
-            resident_threshold=key.resident_threshold, fused=key.fused)
+            tree_kw = dict(
+                leaf=key.leaf, chunk=key.chunk, niter=key.niter,
+                use_zhat=key.use_zhat, return_boundary=key.return_boundary,
+                tol_factor=key.tol_factor,
+                stream_threshold=key.stream_threshold,
+                deflate_budget=key.deflate_budget,
+                resident_threshold=key.resident_threshold, fused=key.fused)
         if key.shards > 1:
             # Chaos-harness hook: corrupts one staged off-diagonal entry
             # (default: the last, a shard-boundary coupling) -- the "halo
@@ -427,63 +429,65 @@ class SolvePlan:
             else:
                 lam, rows, kprimes = _executor_split(d_run, e_run, track,
                                                      split, **tree_kw)
-        _br.SOLVE_COUNTER.increment()
-        # Chaos-harness hook: NaN-poisons configured eigenvalue rows before
-        # the mixed stage (a poisoned mixed solve exercises recovery by
-        # refinement, a poisoned native solve the finalizer's ladder).
-        lam = _faults.poison_rows("plan.output", lam)
+        with span("repro.finalize"):
+            _br.SOLVE_COUNTER.increment()
+            # Chaos-harness hook: NaN-poisons configured eigenvalue rows before
+            # the mixed stage (a poisoned mixed solve exercises recovery by
+            # refinement, a poisoned native solve the finalizer's ladder).
+            lam = _faults.poison_rows("plan.output", lam)
 
-        if _br.SOLVE_COUNTER.deflation_enabled:
-            # Deflation-ratio gauge (opt-in): kprime per level over the
-            # merge nodes that touch real data.
-            for level, kp in enumerate(kprimes):
-                K_level = 2 * key.leaf * (1 << level)
-                nm_real = min(kp.shape[1], -(-n // K_level))
-                _br.SOLVE_COUNTER.record_deflation(
-                    level, float(kp[:B, :nm_real].sum()),
-                    B * nm_real * K_level)
+            if _br.SOLVE_COUNTER.deflation_enabled:
+                # Deflation-ratio gauge (opt-in): kprime per level over the
+                # merge nodes that touch real data.
+                for level, kp in enumerate(kprimes):
+                    K_level = 2 * key.leaf * (1 << level)
+                    nm_real = min(kp.shape[1], -(-n // K_level))
+                    _br.SOLVE_COUNTER.record_deflation(
+                        level, float(kp[:B, :nm_real].sum()),
+                        B * nm_real * K_level)
 
-        lam = lam[:B]
-        rows_b = rows[:B] if key.return_boundary else None
-        if key.precision == "mixed":
-            # Certify the f32 tree's eigenvalues with f64 Sturm counts
-            # against the ORIGINAL (d, e) and polish only the misses, on
-            # the full padded width (sentinel lanes are decoupled and
-            # certify vacuously through nvalid).  The polish can reorder
-            # ties: one stable sort restores ascending order and permutes
-            # the selected rows identically.
-            nvalid = (orig_n if orig_n is not None
-                      else torch.full((B,), n, dtype=torch.int32,
-                                      device=dev))
-            lam_ref, rinfo = _bis.refine_clusters(
-                d_pad[:B], e_pad[:B, : N - 1], lam.to(dtype), nvalid=nvalid,
-                tol_factor=key.refine_tol, sort=False, device=dev)
-            failed = rinfo["uncertified"].any(axis=1)
-            if failed.any():
-                # A problem with a lane the refine rounds could not certify
-                # has failed, like one with a non-finite lane: every lane
-                # of it comes back NaN, sentinels included (a NaN sorts
-                # above them and the [:n] cut below would drop it), and the
-                # request finalizer re-solves the problem natively.
-                lam_ref[torch.from_numpy(failed).to(dev)] = float("nan")
-            lam, order = torch.sort(lam_ref, dim=1, stable=True)
-            if rows_b is not None:
-                rows_b = torch.gather(
-                    rows_b.to(dtype), 2,
-                    order[:, None, :].expand(-1, rows_b.shape[1], -1))
-            if _br.SOLVE_COUNTER.refinement_enabled:
-                _br.SOLVE_COUNTER.record_refinement(
-                    rinfo["targets"], rinfo["polished"],
-                    rinfo["iterations"], rinfo["rounds"])
+            lam = lam[:B]
+            rows_b = rows[:B] if key.return_boundary else None
+            if key.precision == "mixed":
+                # Certify the f32 tree's eigenvalues with f64 Sturm counts
+                # against the ORIGINAL (d, e) and polish only the misses, on
+                # the full padded width (sentinel lanes are decoupled and
+                # certify vacuously through nvalid).  The polish can reorder
+                # ties: one stable sort restores ascending order and permutes
+                # the selected rows identically.
+                nvalid = (orig_n if orig_n is not None
+                          else torch.full((B,), n, dtype=torch.int32,
+                                          device=dev))
+                lam_ref, rinfo = _bis.refine_clusters(
+                    d_pad[:B], e_pad[:B, : N - 1], lam.to(dtype),
+                    nvalid=nvalid, tol_factor=key.refine_tol, sort=False,
+                    device=dev)
+                failed = rinfo["uncertified"].any(axis=1)
+                if failed.any():
+                    # A problem with a lane the refine rounds could not certify
+                    # has failed, like one with a non-finite lane: every lane
+                    # of it comes back NaN, sentinels included (a NaN sorts
+                    # above them and the [:n] cut below would drop it), and the
+                    # request finalizer re-solves the problem natively.
+                    lam_ref[torch.from_numpy(failed).to(dev)] = float("nan")
+                lam, order = torch.sort(lam_ref, dim=1, stable=True)
+                if rows_b is not None:
+                    rows_b = torch.gather(
+                        rows_b.to(dtype), 2,
+                        order[:, None, :].expand(-1, rows_b.shape[1], -1))
+                if _br.SOLVE_COUNTER.refinement_enabled:
+                    _br.SOLVE_COUNTER.record_refinement(
+                        rinfo["targets"], rinfo["polished"],
+                        rinfo["iterations"], rinfo["rounds"])
 
-        lam = lam[:, :n]   # sentinels sort above the Gershgorin bound
-        if key.return_boundary:
-            blo = rows_b[:, 0, :n]
-            bhi = rows_b[:, 2 if track is not None else 1, :n]
-        else:
-            blo = bhi = None
-        return _br.BRBatchResult(lam, blo, bhi,
-                                 tuple(k[:B] for k in kprimes))
+            lam = lam[:, :n]   # sentinels sort above the Gershgorin bound
+            if key.return_boundary:
+                blo = rows_b[:, 0, :n]
+                bhi = rows_b[:, 2 if track is not None else 1, :n]
+            else:
+                blo = bhi = None
+            return _br.BRBatchResult(lam, blo, bhi,
+                                     tuple(k[:B] for k in kprimes))
 
 
 def _batch_sharding(bucket: int, dev: torch.device):
@@ -599,47 +603,49 @@ class RangePlan:
         slices its own [il[b], il[b] + k) window in the same launch (the
         ``kind="edges"`` form).  Returns (B, k).
         """
-        key = self.key
-        dev = self.device
-        d, e = _br._as_batch(d, e, _torch_dtype(key.dtype), dev)
-        B, n = d.shape
-        if n != key.n:
-            raise ValueError(f"n={n} but this plan was built for n={key.n}")
-        Bb = key.batch_bucket
-        if B > Bb:
-            raise ValueError(
-                f"batch {B} exceeds plan bucket {Bb}; make a bigger plan")
-        k = key.k_bucket if k is None else int(k)
-        if not (1 <= k <= key.k_bucket):
-            raise ValueError(
-                f"slice width {k} exceeds plan k bucket {key.k_bucket}")
-        il = np.asarray(il, np.int64)
-        if il.ndim == 0:
-            ilv = int(il)
-            if not (0 <= ilv and ilv + k <= n):
+        with span("repro.stage"):
+            key = self.key
+            dev = self.device
+            d, e = _br._as_batch(d, e, _torch_dtype(key.dtype), dev)
+            B, n = d.shape
+            if n != key.n:
                 raise ValueError(
-                    f"slice [{ilv}, {ilv + k}) out of range for n={n}")
-            il = np.full((B,), ilv, np.int64)
-        else:
-            if il.shape != (B,):
+                    f"n={n} but this plan was built for n={key.n}")
+            Bb = key.batch_bucket
+            if B > Bb:
                 raise ValueError(
-                    f"per-problem il must have shape ({B},), got "
-                    f"{il.shape}")
-            if il.min() < 0 or il.max() >= n:
+                    f"batch {B} exceeds plan bucket {Bb}; make a bigger plan")
+            k = key.k_bucket if k is None else int(k)
+            if not (1 <= k <= key.k_bucket):
                 raise ValueError(
-                    f"per-problem il must lie in [0, {n}); got "
-                    f"[{il.min()}, {il.max()}]")
+                    f"slice width {k} exceeds plan k bucket {key.k_bucket}")
+            il = np.asarray(il, np.int64)
+            if il.ndim == 0:
+                ilv = int(il)
+                if not (0 <= ilv and ilv + k <= n):
+                    raise ValueError(
+                        f"slice [{ilv}, {ilv + k}) out of range for n={n}")
+                il = np.full((B,), ilv, np.int64)
+            else:
+                if il.shape != (B,):
+                    raise ValueError(
+                        f"per-problem il must have shape ({B},), got "
+                        f"{il.shape}")
+                if il.min() < 0 or il.max() >= n:
+                    raise ValueError(
+                        f"per-problem il must lie in [0, {n}); got "
+                        f"[{il.min()}, {il.max()}]")
 
-        if B < Bb:
-            d = torch.cat([d, torch.zeros((Bb - B, n), dtype=d.dtype,
-                                          device=dev)])
-            e = torch.cat([e, torch.zeros((Bb - B, max(n - 1, 0)),
-                                          dtype=d.dtype, device=dev)])
-        il_full = np.zeros((Bb,), np.int64)
-        il_full[:B] = il
-        targets = np.minimum(il_full[:, None]
-                             + np.arange(key.k_bucket)[None, :], n - 1)
-        targets = torch.from_numpy(targets.astype(np.int32)).to(dev)
+            if B < Bb:
+                d = torch.cat([d, torch.zeros((Bb - B, n), dtype=d.dtype,
+                                              device=dev)])
+                e = torch.cat([e, torch.zeros((Bb - B, max(n - 1, 0)),
+                                              dtype=d.dtype, device=dev)])
+            il_full = np.zeros((Bb,), np.int64)
+            il_full[:B] = il
+            targets = np.minimum(il_full[:, None]
+                                 + np.arange(key.k_bucket)[None, :], n - 1)
+            targets = torch.from_numpy(targets.astype(np.int32)).to(dev)
 
         lam = _bis._slice_targets(d, e, targets, maxiter=key.maxiter,
                                   polish=key.polish)

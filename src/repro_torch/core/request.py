@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import guard as _guard
+from repro_torch.core.instrument import span
 from repro_torch.runtime import faults as _faults
 
 KINDS = ("full", "batch", "range", "slq", "edges")
@@ -374,6 +375,13 @@ def _resolve_native_rows(routed: RoutedRequest, prob, lam, blo,
     return done
 
 
+def _read(x):
+    """``x.item()`` of a one-element tensor: a blocking device-to-host
+    read, recorded as a ``repro.sync`` span."""
+    with span("repro.sync"):
+        return x.item()
+
+
 def _finalize_lanes(routed: RoutedRequest, lam, blo=None, bhi=None, *,
                     cert=None, check_finite: bool = True):
     """The graceful-degradation ladder + inverse equilibration.
@@ -401,7 +409,7 @@ def _finalize_lanes(routed: RoutedRequest, lam, blo=None, bhi=None, *,
     rows = blo is not None
     escalations: list = []
     cert_h = None if cert is None else cert.clone()
-    first_sweep_certified = None if cert_h is None else int(cert_h.sum())
+    first_sweep_certified = None if cert_h is None else _read(cert_h.sum())
 
     def record(frm: str, to: str, lanes: int) -> None:
         _br.SOLVE_COUNTER.record_degradation(frm, to, lanes)
@@ -417,7 +425,7 @@ def _finalize_lanes(routed: RoutedRequest, lam, blo=None, bhi=None, *,
 
     if check_finite:
         bad = non_finite()
-        if bool(bad.any()):
+        if _read(bad.any()):
             lam = lam.clone()
             blo = blo.clone() if rows else None
             bhi = bhi.clone() if rows else None
@@ -425,42 +433,44 @@ def _finalize_lanes(routed: RoutedRequest, lam, blo=None, bhi=None, *,
             if mixed or rows:
                 done = _resolve_native_rows(routed, bad.any(dim=1), lam,
                                             blo, bhi)
-                if bool(done.any()):
-                    record(stage, "native", int(bad[done].sum()))
+                if _read(done.any()):
+                    record(stage, "native", _read(bad[done].sum()))
                     at = "native"
                 bad = non_finite()
-            if bool(bad.any()):
+            if _read(bad.any()):
                 if rows:
                     raise _guard.CertificationError(
-                        f"degradation ladder exhausted: {int(bad.sum())} "
+                        f"degradation ladder exhausted: {_read(bad.sum())} "
                         f"non-finite output lanes remain and the request "
                         f"owes boundary rows, which bisection cannot "
                         f"produce")
-                record(at, "bisect", int(bad.sum()))
+                record(at, "bisect", _read(bad.sum()))
                 _bisect_lanes(routed, lam, bad)
                 if cert_h is not None:
                     cert_h[bad] = True   # count-verified by construction
                 still = ~torch.isfinite(lam)
-                if bool(still.any()):
+                if _read(still.any()):
                     raise _guard.CertificationError(
-                        f"degradation ladder exhausted: {int(still.sum())} "
+                        f"degradation ladder exhausted: {_read(still.sum())} "
                         f"lanes non-finite even after Sturm bisection")
             # Re-certify lanes repaired by a native re-solve (bisected
             # lanes are already accounted above).
-            if cert_h is not None and not bool(cert_h.all()):
+            if cert_h is not None and not _read(cert_h.all()):
                 from repro_torch.core import bisect as _bis
                 tol = (getattr(routed.route, "refine_tol", 0.0)
                        or _bis.DEFAULT_REFINE_TOL)
-                for b in torch.nonzero((~cert_h).any(dim=1)
-                                       ).flatten().tolist():
+                with span("repro.sync"):
+                    redo = torch.nonzero((~cert_h).any(dim=1)
+                                         ).flatten().tolist()
+                for b in redo:
                     cert_h[b] = _bis.certify_spectrum(
                         routed.d[b], routed.e[b], lam[b], tol=tol,
                         device=lam.device).certified
 
-    if cert_h is not None and not bool(cert_h.all()):
+    if cert_h is not None and not _read(cert_h.all()):
         miss = ~cert_h
         lam = lam.clone()
-        record(stage, "bisect", int(miss.sum()))
+        record(stage, "bisect", _read(miss.sum()))
         _bisect_lanes(routed, lam, miss)
 
     if routed.scale != 1.0:
@@ -516,9 +526,20 @@ def _unwrap(single: bool, *arrays):
 def execute_request(req: SolveRequest | RoutedRequest) -> SolveResult:
     """Execute a (routed) request synchronously: the single launch path
     the sync API wraps."""
+    with span("repro.solve"):
+        return _execute(req)
+
+
+def _execute(req: SolveRequest | RoutedRequest) -> SolveResult:
     from repro_torch.core import br_dc as _br
     from repro_torch.core import plan as _plan
-    routed = route_request(req) if isinstance(req, SolveRequest) else req
+    with span("repro.front_door"):
+        routed = (route_request(req) if isinstance(req, SolveRequest)
+                  else req)
+        if isinstance(routed.route, _plan.RangePlanKey):
+            plan = _plan.range_plan_for_route(routed.route, routed.batch)
+        elif routed.route is not None:
+            plan = _plan.plan_for_route(routed.route, routed.batch)
     req = routed.request
 
     if routed.empty:
@@ -529,44 +550,46 @@ def execute_request(req: SolveRequest | RoutedRequest) -> SolveResult:
                            kind=req.kind, method=req.method)
 
     if isinstance(routed.route, _plan.RangePlanKey):
-        plan = _plan.range_plan_for_route(routed.route, routed.batch)
         lam = plan.execute(routed.d, routed.e, routed.il, routed.k)
-        diag = None
-        if routed.scale != 1.0:
-            lam = lam * (1.0 / routed.scale)
-            diag = {"equilibration_scale": routed.scale}
-        if req.certify:
-            # Sturm bisection IS a certificate: every returned value is
-            # enclosed by exact integer counts, so the tally needs no
-            # extra sweep.
-            diag = dict(diag or ())
-            diag.update(certified=int(routed.batch * routed.k),
-                        lanes=int(routed.batch * routed.k))
-        return SolveResult(eigenvalues=_unwrap(routed.single, lam)[0],
-                           kind=req.kind, method=req.method,
-                           diagnostics=diag)
+        with span("repro.finalize"):
+            diag = None
+            if routed.scale != 1.0:
+                lam = lam * (1.0 / routed.scale)
+                diag = {"equilibration_scale": routed.scale}
+            if req.certify:
+                # Sturm bisection IS a certificate: every returned value is
+                # enclosed by exact integer counts, so the tally needs no
+                # extra sweep.
+                diag = dict(diag or ())
+                diag.update(certified=int(routed.batch * routed.k),
+                            lanes=int(routed.batch * routed.k))
+            return SolveResult(eigenvalues=_unwrap(routed.single, lam)[0],
+                               kind=req.kind, method=req.method,
+                               diagnostics=diag)
 
     if routed.route is not None:
         route = routed.route
-        res = _plan.plan_for_route(route, routed.batch).execute(
-            routed.d, routed.e)
-        lam, blo, bhi = res.eigenvalues, res.blo, res.bhi
-        cert = None
-        if route.certify:
-            from repro_torch.core import bisect as _bis
-            cert = _bis.certify_spectrum(
-                routed.d, routed.e, lam, tol=route.refine_tol,
-                device=lam.device).certified
-        # Output finiteness is checked when something already forces a
-        # host round trip (certification, the mixed refinement) or when
-        # the chaos harness is live: the front door rejected input
-        # poison, so a non-finite native output means a device fault.
-        check = (route.certify or _faults.faults_enabled()
-                 or route.precision == "mixed")
-        lam, blo, bhi, diag = _finalize_lanes(routed, lam, blo, bhi,
-                                              cert=cert,
-                                              check_finite=check)
-    elif req.method != "br":
+        res = plan.execute(routed.d, routed.e)
+        with span("repro.finalize"):
+            lam, blo, bhi = res.eigenvalues, res.blo, res.bhi
+            cert = None
+            if route.certify:
+                from repro_torch.core import bisect as _bis
+                cert = _bis.certify_spectrum(
+                    routed.d, routed.e, lam, tol=route.refine_tol,
+                    device=lam.device).certified
+            # Output finiteness is checked when something already forces a
+            # host round trip (certification, the mixed refinement) or
+            # when the chaos harness is live: the front door rejected input
+            # poison, so a non-finite native output means a device fault.
+            check = (route.certify or _faults.faults_enabled()
+                     or route.precision == "mixed")
+            lam, blo, bhi, diag = _finalize_lanes(routed, lam, blo, bhi,
+                                                  cert=cert,
+                                                  check_finite=check)
+            return _result(routed, lam, blo, bhi, diag)
+
+    if req.method != "br":
         # Direct path: the baselines, one problem at a time (these methods
         # exist to model per-problem quadratic state).
         dev = _plan.resolve_device(req.device)
@@ -598,6 +621,11 @@ def execute_request(req: SolveRequest | RoutedRequest) -> SolveResult:
         lam, blo, bhi, diag = _finalize_lanes(routed, lam, blo, bhi,
                                               cert=cert,
                                               check_finite=req.certify)
+    return _result(routed, lam, blo, bhi, diag)
+
+
+def _result(routed: RoutedRequest, lam, blo, bhi, diag) -> SolveResult:
     lam, blo, bhi = _unwrap(routed.single, lam, blo, bhi)
+    req = routed.request
     return SolveResult(eigenvalues=lam, blo=blo, bhi=bhi, kind=req.kind,
                        method=req.method, diagnostics=diag)
